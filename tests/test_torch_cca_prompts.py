@@ -1,0 +1,161 @@
+"""Parity of the port's CCA, component stats and SAM prompt extraction with
+the JAX package: labels, stats and prompt coordinates must be exactly
+equal.  The ``cuda`` test holds kernel K3 to its plain version bit for
+bit."""
+
+import numpy as np
+import pytest
+import torch
+
+try:  # the JAX reference; the GPU machine has no JAX and runs only `-m cuda`
+    import jax.numpy as jnp
+
+    from protosam_tpu.ops import cca as jcca
+    from protosam_tpu.ops import prompts as jprompts
+    from protosam_tpu.pipeline.protosam import (
+        _keep_best_component as j_keep_best)
+except ImportError:
+    pass
+
+from protosam_tpu_torch.entry import set_f32_precision
+from protosam_tpu_torch.ops import cca as tcca
+from protosam_tpu_torch.ops import prompts as tprompts
+from protosam_tpu_torch.pipeline.protosam import _keep_best_component
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    """The card at full f32 precision; the kernels have no CPU mode, so
+    without one the test skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the hand-written kernels run only there")
+    set_f32_precision()  # f32 tests compare in full f32: no TF32 anywhere
+    return torch.device("cuda")
+
+
+def random_blobs(rng, h, w, n, r):
+    mask = np.zeros((h, w), np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for _ in range(n):
+        cy, cx = rng.integers(r, h - r), rng.integers(r, w - r)
+        mask[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
+    return mask
+
+
+def snake(h, w):
+    m = np.zeros((h, w), np.uint8)
+    for r in range(0, h, 4):
+        m[r, :] = 1
+        m[r:r + 5, w - 1 if (r // 4) % 2 == 0 else 0] = 1
+    return m
+
+
+def mask_batch(h=64, w=64, seed=0):
+    """Blobs, a snake, noise (many components), an empty and a full mask."""
+    rng = np.random.default_rng(seed)
+    return np.stack([random_blobs(rng, h, w, n=4, r=7), snake(h, w),
+                     (rng.random((h, w)) > 0.6).astype(np.uint8),
+                     np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8)])
+
+
+def jax_stats(mask, max_ccs):
+    return [jcca.connected_components(jnp.asarray(m, jnp.float32), max_ccs)
+            for m in mask]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_root_labels_match_jax(seed):
+    masks = mask_batch(seed=seed)
+    got = tcca.label_components(torch.from_numpy(masks)).numpy()
+    for i, m in enumerate(masks):
+        want = np.asarray(jcca._label_components_xla(jnp.asarray(m)))
+        np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("max_ccs", [4, 8])
+def test_component_stats_match_jax(max_ccs):
+    masks = mask_batch(seed=3)
+    got = tcca.connected_components(torch.from_numpy(masks).float(),
+                                    max_ccs)
+    for i, want in enumerate(jax_stats(masks, max_ccs)):
+        for field in tcca.ComponentStats._fields:
+            np.testing.assert_array_equal(
+                getattr(got, field)[i].numpy(),
+                np.asarray(getattr(want, field)), err_msg=field)
+
+
+def test_component_confidences_match_jax():
+    masks = mask_batch(seed=4).astype(np.float32)
+    probs = np.random.default_rng(4).random(masks.shape).astype(np.float32)
+    stats = tcca.connected_components(torch.from_numpy(masks), 8)
+    got = tcca.component_confidences(stats, torch.from_numpy(probs),
+                                     torch.from_numpy(masks)).numpy()
+    for i, js in enumerate(jax_stats(masks, 8)):
+        want = jcca.component_confidences(js, jnp.asarray(probs[i]),
+                                          jnp.asarray(masks[i]))
+        np.testing.assert_allclose(got[i], np.asarray(want), rtol=1e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("point_mode,num_points,neg", [
+    ("both", 1, False), ("conf", 3, False), ("centroid", 1, False),
+    ("both", 2, True)])
+def test_prompts_match_jax(point_mode, num_points, neg):
+    masks = mask_batch(seed=5).astype(np.float32)
+    rng = np.random.default_rng(5)
+    fg = rng.random(masks.shape).astype(np.float32)
+    fg[0, 10:20, 10:20] = 0.5  # ties break at the lowest flat index
+    bg = 1.0 - fg
+    stats = tcca.connected_components(torch.from_numpy(masks), 4)
+    got = tprompts.build_sam_prompts(
+        torch.from_numpy(fg), torch.from_numpy(bg), stats,
+        num_points=num_points, point_mode=point_mode, use_neg_points=neg)
+    for i, js in enumerate(jax_stats(masks, 4)):
+        want = jprompts.build_sam_prompts(
+            jnp.asarray(fg[i]), jnp.asarray(bg[i]), js,
+            num_points=num_points, point_mode=point_mode,
+            use_neg_points=neg)
+        for field in ("coords", "labels", "valid"):
+            np.testing.assert_array_equal(
+                getattr(got, field)[i].numpy(),
+                np.asarray(getattr(want, field)), err_msg=field)
+
+
+def test_topk_tie_order_matches_jax():
+    prob = np.full((12, 12), 0.25, np.float32)
+    prob[5, 7] = prob[2, 9] = prob[8, 1] = 0.75
+    region = np.ones((12, 12), np.float32)
+    xy, conf = tprompts.topk_points(torch.from_numpy(prob),
+                                    torch.from_numpy(region), 5)
+    jxy, jconf = jprompts.topk_points(jnp.asarray(prob), jnp.asarray(region),
+                                      5)
+    np.testing.assert_array_equal(xy.numpy(), np.asarray(jxy))
+    np.testing.assert_array_equal(conf.numpy(), np.asarray(jconf))
+
+
+def test_keep_best_component_matches_jax():
+    masks = mask_batch(seed=6).astype(np.float32)
+    probs = np.random.default_rng(6).random(masks.shape).astype(np.float32)
+    stats = tcca.connected_components(torch.from_numpy(masks), 4)
+    conf = tcca.component_confidences(stats, torch.from_numpy(probs),
+                                      torch.from_numpy(masks))
+    got, got_conf = _keep_best_component(stats, conf)
+    for i, js in enumerate(jax_stats(masks, 4)):
+        want, want_conf = j_keep_best(js, jnp.asarray(conf[i].numpy()))
+        for field in tcca.ComponentStats._fields:
+            np.testing.assert_array_equal(
+                getattr(got, field)[i].numpy(),
+                np.asarray(getattr(want, field)), err_msg=field)
+        np.testing.assert_array_equal(got_conf[i].numpy(),
+                                      np.asarray(want_conf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(64, 64), (256, 192), (1024, 1024)])
+def test_cca_kernel_matches_plain_exactly(cuda, size):
+    masks = torch.from_numpy(mask_batch(*size, seed=7)).to(cuda)
+    got = tcca.label_components(masks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tcca.label_components_plain(masks))
