@@ -1,9 +1,11 @@
-"""The flagship slice pipeline: FewShotSeg DINOv2-L/14 at 672 px + SAM
-ViT-B at 1024, bf16 with the f32 tails (DINOv2 final norm, ALP score, logit
+"""Build the ProtoSAM slice pipeline: FewShotSeg DINOv2 at 672 px + SAM at
+1024, bf16 with the f32 tails (DINOv2 final norm, ALP score, logit
 upsample, prompt encoder and mask decoder), ``ProtoSAMConfig()`` defaults
 (cca mode, both point modes, box prompts, ``max_ccs=8``) and synthetic
-weights from a seed.  The counterpart of ``__graft_entry__._flagship`` with
-int8 off.
+weights from a seed.  The defaults are the flagship, the counterpart of
+``__graft_entry__._flagship`` with int8 off (SAM ViT-B); the ViT-H refine
+configuration sets ``sam_ver="vit_h"`` and the three fused routes
+(``eval.protosam_eval.build_models`` maps the eval ``Config`` here).
 
     pipe = build_pipeline("cuda")
     preds, scores = pipe.forward_volume(queries, ALPNetInput(supp, fg, q0))
@@ -33,14 +35,21 @@ def build_pipeline(device: torch.device | str, sam_ver: str = "vit_b",
                    sam_size: int = 1024,
                    dtype: torch.dtype = torch.bfloat16,
                    config: ProtoSAMConfig | None = None,
-                   seed: int = 0) -> ProtoSAM:
+                   seed: int = 0, proto_grid_size: int = 8,
+                   use_fused_alp: bool = False, fused_mlp: bool = False,
+                   fused_proj: bool = False) -> ProtoSAM:
     """Both models built on the meta device, then allocated on ``device``
     with role-aware synthetic weights; the two encoders cast to ``dtype``
-    (their norms keep f32 params), everything else stays f32."""
+    (their norms keep f32 params), everything else stays f32.
+    ``use_fused_alp`` puts the ALP matching on kernel K5, ``fused_mlp`` /
+    ``fused_proj`` the bf16 SAM encoder's MLP / projection on K7 / K6."""
     set_f32_precision()
     with torch.device("meta"):
-        coarse_model = FewShotSeg(image_size=image_size, which_model=coarse)
-        sam = build_sam(sam_ver, image_size=sam_size)
+        coarse_model = FewShotSeg(image_size=image_size, which_model=coarse,
+                                  proto_grid_size=proto_grid_size,
+                                  use_fused_alp=use_fused_alp)
+        sam = build_sam(sam_ver, image_size=sam_size, fused_mlp=fused_mlp,
+                        fused_proj=fused_proj)
     materialize(coarse_model, device, seed)
     materialize(sam, device, seed + 1)
     cast_compute(coarse_model.encoder, dtype)

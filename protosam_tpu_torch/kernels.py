@@ -8,7 +8,8 @@ Nothing is built or imported while this module is imported.
 
 The op wrappers (``ops/norm.layer_norm_rows``,
 ``ops/attention.masked_flash_attention_packed``, ``ops/cca.label_components``,
-``ops/vitdet_flash.relpos_patch_attention``) allocate outputs with
+``ops/vitdet_flash.relpos_patch_attention``, ``ops/alp.alp_match_fused``,
+``ops/mlp.dense_residual``, ``ops/mlp.mlp_fused``) allocate outputs with
 ``torch.empty``, launch on PyTorch's current stream and raise on a non-zero
 ``cudaGetLastError()``.
 """
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "ptk_relpos_patch_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _I, _P),
     "ptk_cca_label": (_P, _P, _P, _I, _I, _I, _P),
+    "ptk_alp_match": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ptk_dense_residual": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "ptk_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

@@ -6,6 +6,8 @@ One encoder pass over [support..., query], masks resized to the feature grid
 'gridconv+' passes (max over shots) with the fallback to 'mask' mode, and a
 bilinear upsample of the 2-class score map to image size.  Scoring and the
 upsample run in f32: their argmax seeds CCA and every SAM prompt.
+``use_fused_alp`` routes the BG and the per-shot FG matching through kernel
+K5 (JAX ``fewshot.py:53,129-137``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ _ENCODER_ALIASES = {
 
 class FewShotSeg(nn.Module):
     def __init__(self, image_size: int = 672,
-                 which_model: str = "dinov2_l14", proto_grid_size: int = 8):
+                 which_model: str = "dinov2_l14", proto_grid_size: int = 8,
+                 use_fused_alp: bool = False):
         super().__init__()
         if which_model not in _ENCODER_ALIASES:
             raise KeyError(f"unsupported coarse backbone {which_model!r}; "
@@ -40,6 +43,7 @@ class FewShotSeg(nn.Module):
         self.image_size = image_size
         self.which_model = which_model
         self.proto_grid_size = proto_grid_size
+        self.use_fused_alp = use_fused_alp
         self.encoder = build_dinov2(_ENCODER_ALIASES[which_model])
 
     @property
@@ -73,11 +77,12 @@ class FewShotSeg(nn.Module):
         qry_fts, supp_fts = qry_fts.float(), supp_fts.float()
         bg = back_mask[:, None].float()
         bg_score = alp_score(qry_fts, supp_fts, bg, "gridconv", val_wsize,
-                             BG_THRESH)
+                             BG_THRESH, self.use_fused_alp)
         fg_scores = [fg_score_with_fallback(
             qry_fts, supp_fts[i:i + 1], fore_mask[i:i + 1, None].float(),
             window=val_wsize, fallback_window=self.kernel_size,
-            thresh=FG_THRESH) for i in range(supp_fts.shape[0])]
+            thresh=FG_THRESH, use_fused=self.use_fused_alp)
+            for i in range(supp_fts.shape[0])]
         fg_score = torch.amax(torch.stack(fg_scores), dim=0)  # max over shots
         return torch.cat([bg_score, fg_score], dim=1)
 

@@ -8,6 +8,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from protosam_tpu_torch.ops.mlp import mlp_fused
 from protosam_tpu_torch.ops.norm import layer_norm_tokens
 
 
@@ -50,7 +51,15 @@ class LayerNorm2d(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    """Linear -> act -> Linear (reference common.py:13-26)."""
+    """Linear -> act -> Linear (reference common.py:13-26), with an optional
+    residual added to the output.
+
+    ``fused=True`` routes a 2-D bf16 input through kernel K7 ``mlp_fused``
+    (both products, the tanh GELU and the residual in one kernel; JAX
+    ``layers.py:80-117``).  The kernel hard-codes the tanh GELU, which is
+    ``act`` under bf16 for the SAM encoder, its only caller.  The
+    parameters stay ``lin1`` / ``lin2`` either way.
+    """
 
     def __init__(self, embedding_dim: int, mlp_dim: int,
                  act: Callable[[torch.Tensor], torch.Tensor]):
@@ -59,8 +68,13 @@ class MLPBlock(nn.Module):
         self.lin2 = nn.Linear(mlp_dim, embedding_dim)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(self.act(self.lin1(x)))
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                fused: bool = False) -> torch.Tensor:
+        if fused and x.dtype == torch.bfloat16 and x.ndim == 2:
+            return mlp_fused(x, self.lin1.weight, self.lin1.bias,
+                             self.lin2.weight, self.lin2.bias, residual)
+        y = self.lin2(self.act(self.lin1(x)))
+        return y if residual is None else residual + y
 
 
 class MLP(nn.Module):

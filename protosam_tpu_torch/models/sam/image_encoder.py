@@ -6,6 +6,12 @@ projection (not the input) to a window multiple, so pad tokens carry the
 qkv bias exactly as the reference's zero-padded input does after its
 projection.  Both attention kinds run on kernel K4 from the packed qkv plus
 the compact decomposed rel-pos bias; the block LayerNorms run on kernel K1.
+
+``fused_proj`` / ``fused_mlp`` (the JAX package's ``PTPU_PROJ_PALLAS`` /
+``PTPU_MLP_PALLAS``) run the attention projection with its residual on
+kernel K6 and the MLP with its residual on kernel K7.  They apply only to
+bf16 activations; under f32 a block keeps the plain composition, the JAX
+rule at ``image_encoder.py:429-430,465-475``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from torch import nn
 
 from protosam_tpu_torch.models.layers import (LayerNorm2d, MLPBlock,
                                               TokenLayerNorm, gelu_for)
+from protosam_tpu_torch.ops.mlp import dense_residual
 from protosam_tpu_torch.ops.vitdet_flash import (global_packed_attention,
                                                  window_packed_attention)
 
@@ -56,7 +63,11 @@ class Attention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, H, W, C) -> proj(attention), plus ``residual`` when given:
+        under bf16 the projection and the add run as kernel K6 on the
+        flattened (B·H·W, C) rows."""
         b, h, w, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)                                  # (B, H, W, 3C)
@@ -87,13 +98,22 @@ class Attention(nn.Module):
                 bias = F.pad(bias, (0, 0, 0, pw, 0, ph))
             out = window_packed_attention(qkv, bias.contiguous(), win, nh,
                                           self.scale)[:, :h, :w]
-        return self.proj(out)
+        if residual is None:
+            return self.proj(out)
+        if out.dtype != torch.bfloat16:
+            return residual + self.proj(out)
+        return dense_residual(out.reshape(-1, c), self.proj.weight,
+                              self.proj.bias, residual.reshape(-1, c)
+                              ).reshape(residual.shape)
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 window_size: int, input_size: tuple[int, int]):
+                 window_size: int, input_size: tuple[int, int],
+                 fused_mlp: bool = False, fused_proj: bool = False):
         super().__init__()
+        self.fused_mlp = fused_mlp
+        self.fused_proj = fused_proj
         self.norm1 = TokenLayerNorm(dim, 1e-6)
         self.attn = Attention(dim, num_heads, window_size,
                               input_size if window_size == 0
@@ -102,7 +122,16 @@ class Block(nn.Module):
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio), gelu_for)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+        bf16 = x.dtype == torch.bfloat16
+        if self.fused_proj and bf16:
+            x = self.attn(self.norm1(x), residual=x)
+        else:
+            x = x + self.attn(self.norm1(x))
+        if self.fused_mlp and bf16:
+            c = x.shape[-1]
+            return self.mlp(self.norm2(x).reshape(-1, c),
+                            residual=x.reshape(-1, c),
+                            fused=True).reshape(x.shape)
         return x + self.mlp(self.norm2(x))
 
 
@@ -114,7 +143,8 @@ class ImageEncoderViT(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, out_chans: int = 256,
                  window_size: int = 14,
-                 global_attn_indexes: Sequence[int] = ()):
+                 global_attn_indexes: Sequence[int] = (),
+                 fused_mlp: bool = False, fused_proj: bool = False):
         super().__init__()
         grid = img_size // patch_size
         self.img_size = img_size
@@ -125,7 +155,8 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio,
                   0 if i in global_attn_indexes else window_size,
-                  (grid, grid)) for i in range(depth))
+                  (grid, grid), fused_mlp, fused_proj)
+            for i in range(depth))
         self.neck = nn.Sequential(
             nn.Conv2d(embed_dim, out_chans, 1, bias=False),
             LayerNorm2d(out_chans),

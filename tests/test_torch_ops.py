@@ -28,7 +28,9 @@ except ImportError:
     pass
 
 from protosam_tpu_torch.entry import set_f32_precision
+from protosam_tpu_torch.ops import alp as talp
 from protosam_tpu_torch.ops import attention as tattn
+from protosam_tpu_torch.ops import mlp as tmlp
 from protosam_tpu_torch.ops import norm as tnorm
 from protosam_tpu_torch.ops import pooling as tpool
 from protosam_tpu_torch.ops import resize as tresize
@@ -213,7 +215,10 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'protosam_tpu')]\n"
-        "print(len(bad)); assert not bad, bad\n")
+        "print(len(bad)); assert not bad, bad\n"
+        "for m in ('ops.mlp', 'ops.alp', 'eval.protosam_eval', "
+        "'utils.config'):\n"
+        "    assert 'protosam_tpu_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -222,17 +227,23 @@ def test_import_pulls_in_no_jax():
 
 def test_wrappers_take_plain_versions_on_cpu():
     """A CPU tensor takes the plain version and counts no launch."""
-    before = (tnorm.layer_norm_rows.launches,
-              tattn.masked_flash_attention_packed.launches,
-              tvf.relpos_patch_attention.launches)
+    wrappers = (tnorm.layer_norm_rows, tattn.masked_flash_attention_packed,
+                tvf.relpos_patch_attention, talp.alp_match_fused,
+                tmlp.dense_residual, tmlp.mlp_fused)
+    before = [fn.launches for fn in wrappers]
     tnorm.layer_norm_rows(torch.ones(8, 4), torch.ones(4), torch.zeros(4))
     tattn.masked_flash_attention_packed(torch.ones(1, 4, 6), scale=1.0,
                                         num_heads=1)
     tvf.relpos_patch_attention(torch.ones(1, 2, 2, 6), torch.ones(1, 2, 2, 4),
                                2, 1, 1.0)
-    assert before == (tnorm.layer_norm_rows.launches,
-                      tattn.masked_flash_attention_packed.launches,
-                      tvf.relpos_patch_attention.launches)
+    talp.alp_match_fused(torch.ones(1, 4, 2, 2), torch.ones(3, 4),
+                         torch.ones(3, dtype=torch.bool))
+    x, w = torch.ones(4, 16, dtype=torch.bfloat16), torch.ones(
+        16, 16, dtype=torch.bfloat16)
+    b = torch.zeros(16, dtype=torch.bfloat16)
+    tmlp.dense_residual(x, w, b, x)
+    tmlp.mlp_fused(x, w, b, w, b, x)
+    assert before == [fn.launches for fn in wrappers]
 
 
 # -------------------------------------------------------- CUDA kernels
@@ -268,11 +279,11 @@ def test_packed_attention_kernel_matches_plain(cuda, dtype, nh, hd, s,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("side,patch,hd", [(28, 14, 40), (16, 16, 40),
-                                           (70, 14, 64)])
-def test_relpos_kernel_matches_plain(cuda, dtype, side, patch, hd):
+@pytest.mark.parametrize("side,patch,nh,hd", [
+    (28, 14, 4, 40), (16, 16, 4, 40), (70, 14, 4, 64),
+    (28, 14, 16, 80), (16, 16, 16, 80)])  # hd 80, 16 heads: SAM ViT-H
+def test_relpos_kernel_matches_plain(cuda, dtype, side, patch, nh, hd):
     g = torch.Generator().manual_seed(2)
-    nh = 4
     qkv = torch.randn(2, side, side, 3 * nh * hd, generator=g).to(cuda,
                                                                   dtype)
     bias = (0.5 * torch.randn(2, side, side, nh * 2 * patch,
