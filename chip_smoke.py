@@ -7,8 +7,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
 0. device: requires CUDA, prints the card's name and power limit;
 1. build: compiles the hand-written kernels (csrc/) and prints the seconds;
 2. kernels: each kernel against its plain PyTorch version at the shapes
-   of the flagship and of the ViT-H configuration (B = 2 slices), with the
-   error and median times of both;
+   of the flagship and of the ViT-H configuration (B = 2 slices, from
+   ``tools.roofline.MAIN_PATH_SHAPES``), with the error and the device
+   times (``tools.timing.device_ms``) of both and of the library call;
+   K2's bf16-score instantiation is held to the plain v3 at large logits
+   (``tools.microbench_attn.check_v3``);
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
    once as built by default and once with the fused ALP match (K5);
@@ -16,19 +19,26 @@ Phases, one line each; any failure exits non-zero and prints no result:
    tails, ``forward_volume`` over 8 smooth synthetic slices, twice; K1-K4
    must have launched on that path;
 5. ViT-H: the eval configuration with SAM ViT-H and the fused ALP, MLP and
-   projection routes, built by ``eval.protosam_eval.build_models``,
+   projection routes, built by ``eval.protosam_eval.build_models``
+   (``tools.pipeline_profile.build_config``),
    ``forward_volume`` over the same kind of slices, twice; all seven
    kernels must have launched, and its masks must agree with the same
-   weights built with the three fused routes off.
+   weights built with the three fused routes off;
+6. tools: the measurement tools' own entry functions at small rep counts:
+   ``bench_fc2`` (K6 at the ViT-H fc2 geometry, row 13 of the kernel
+   table) and ``microbench_attn`` (K2 and its bf16-score variant, row 14)
+   must launch their kernels; ``trace_volume`` on the flagship prints the
+   device idle share and the top five kernels.
 
-Then one JSON line with the kernels' numbers and, last, the result line.
-Imports only torch, numpy and protosam_tpu_torch.
+Then one JSON line with the kernels' numbers (each with its bound from
+``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
+same function, that call's time as ``library_ms``) and, last, the result
+line.  Imports only torch, numpy and protosam_tpu_torch.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -39,36 +49,10 @@ import torch.nn.functional as F
 
 BF16_TOL = 2e-2          # x max(1, max|ref|), against the f32 plain version
 F32_TOL = 1e-4
-B = 2                    # slices per kernel check
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max |got - want|, the bf16 bound max(1, max|want|) x BF16_TOL)."""
-    got, want = got.float(), want.float()
-    if not torch.isfinite(got).all():
-        raise AssertionError("kernel output is not finite")
-    err = (got - want).abs().max().item()
-    return err, BF16_TOL * max(1.0, want.abs().max().item())
 
 
 def phase_device() -> str:
@@ -95,9 +79,17 @@ def phase_build() -> None:
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
 
 
-def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, **meta):
+def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, cost,
+           library=None, **meta):
     """Run the kernel once against the f32 plain version, then time the
-    kernel and the plain version on the same inputs."""
+    kernel, the plain version and, where there is one, the one library call
+    that computes the same function, on the same inputs: per-launch device
+    ms, the median of 5 runs of 10 back-to-back launches (the plain
+    version: 3 runs of 2).  ``cost`` is the (kernel, shapes) pair that
+    ``kernel_cost`` bounds."""
+    from protosam_tpu_torch.tools.roofline import kernel_cost
+    from protosam_tpu_torch.tools.timing import bf16_error, device_ms
+
     got = kernel_fn()
     torch.cuda.synchronize()
     want = ref_fn()
@@ -105,21 +97,27 @@ def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, **meta):
         err = float((got.long() - want.long()).abs().max().item())
         ok, bound = torch.equal(got, want), 0.0
     else:
-        err, bound = max_err(got, want)
+        err, bound = bf16_error(got, want, BF16_TOL)
         if tol_kind == "f32":
             bound = F32_TOL
         ok = err <= bound
-    ms = median_ms(kernel_fn)
-    plain_ms = median_ms(plain_fn)
+    ms = device_ms(kernel_fn).median_ms
+    plain_ms = device_ms(plain_fn, reps=2, runs=3).median_ms
+    library_ms = None if library is None else device_ms(library).median_ms
+    _, _, bound_ms, bound_by = kernel_cost(cost[0], **cost[1])
     extra = "".join(f" {k[:-3]} {v:.4f} ms" for k, v in meta.items()
                     if k.endswith("_ms"))
+    if library_ms is not None:
+        extra += f" library {library_ms:.4f} ms"
     log(f"phase 2 kernel {name}: max_abs_err {err:.3e} (bound {bound:.3e}) "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra}")
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{extra}; roofline "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err} > {bound})")
     entries.append(dict(name=name, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, **meta))
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms, **meta))
 
 
 def _cca_masks(h: int, w: int, seed: int) -> torch.Tensor:
@@ -156,118 +154,170 @@ def phase_kernels() -> list[dict]:
                                              layer_norm_rows_plain)
     from protosam_tpu_torch.ops.vitdet_flash import (
         relpos_patch_attention, relpos_patch_attention_plain)
+    from protosam_tpu_torch.tools import bench_fc2, microbench_attn
+    from protosam_tpu_torch.tools.bench_attn import (sdpa_operands,
+                                                     sdpa_patches)
+    from protosam_tpu_torch.tools.roofline import (MAIN_PATH_SHAPES,
+                                                   tool_shapes)
+    from protosam_tpu_torch.tools.timing import device_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=g).to(dev)
     entries: list[dict] = []
+    shapes = lambda label: MAIN_PATH_SHAPES[label][1]
 
-    # K1: every block LayerNorm of DINOv2-L (B*2432, 1024), SAM-B
-    # (B*4096, 768) and SAM-H (B*4096, 1280); bf16 is the production type,
-    # f32 the parity type
-    for rows, c in ((B * 2432, 1024), (B * 4096, 768), (B * 4096, 1280)):
+    # K1: every block LayerNorm of DINOv2-L, SAM-B and SAM-H; bf16 is the
+    # production type, f32 the parity type
+    for label in ("K1 DINOv2-L rows", "K1 SAM-B rows", "K1 SAM-H rows"):
+        rows, c = shapes(label)["rows"], shapes(label)["c"]
         x = randn(rows, c) * 3 + 1
         wt, bs = 1 + 0.1 * randn(c), 0.1 * randn(c)
         for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            xd = x.to(dt)
+            xd, wd, bd = x.to(dt), wt.to(dt), bs.to(dt)
             _check(f"layer_norm_rows ({rows}x{c} {kind})",
                    lambda: layer_norm_rows(xd, wt, bs, 1e-6),
                    lambda: layer_norm_rows_plain(xd, wt, bs, 1e-6, dt),
                    lambda: layer_norm_rows_plain(xd.float(), wt, bs, 1e-6,
                                                  torch.float32),
-                   kind, entries, kernel="layer_norm_rows")
+                   kind, entries,
+                   ("layer_norm_rows",
+                    dict(rows=rows, c=c, itemsize=xd.element_size())),
+                   library=lambda: F.layer_norm(xd, (c,), wd, bd, 1e-6),
+                   kernel="layer_norm_rows")
 
     # K2: DINOv2-L at 672 px: 2305 tokens padded to 2432, 16 heads x 64
-    qkv = randn(B, 2432, 3 * 1024).to(torch.bfloat16)
-    kw = dict(scale=0.125, num_heads=16, n_valid=2305)
-    _check("packed_masked_attention (2x2432x3072 bf16, n_valid 2305)",
+    sh = shapes("K2 DINOv2-L")
+    k2_cost = MAIN_PATH_SHAPES["K2 DINOv2-L"]
+    qkv = randn(sh["b"], sh["s"], 3 * sh["nh"] * sh["hd"]).to(torch.bfloat16)
+    kw = dict(scale=sh["hd"] ** -0.5, num_heads=sh["nh"],
+              n_valid=sh["n_valid"])
+    geometry = (f"{sh['b']}x{sh['s']}x{3 * sh['nh'] * sh['hd']} bf16, "
+                f"n_valid {sh['n_valid']}")
+    _check(f"packed_masked_attention ({geometry})",
            lambda: masked_flash_attention_packed(qkv, **kw),
            lambda: masked_attention_packed_plain(qkv, **kw),
            lambda: masked_attention_packed_plain(qkv.float(), **kw),
-           "bf16", entries, kernel="packed_masked_attention")
+           "bf16", entries, k2_cost,
+           library=lambda: microbench_attn.sdpa(qkv, **kw),
+           kernel="packed_masked_attention")
+    # K2's bf16-score instantiation (microbench_attn v3) on the tool's
+    # input times LOGIT_SCALE (scores spread ~4), where a kernel that
+    # skipped v3's roundings would be told apart
+    big = torch.from_numpy(microbench_attn.qkv_input(
+        sh["b"], sh["s"], sh["nh"] * sh["hd"])
+        * microbench_attn.LOGIT_SCALE).to(device=dev, dtype=torch.bfloat16)
+    v3 = microbench_attn.check_v3(big, **kw)
+    log(f"phase 2 kernel packed_masked_attention bf16 scores at logits x "
+        f"{microbench_attn.LOGIT_SCALE:g}: mean |kernel - plain v3| "
+        f"{v3['mean_err']:.3e} <= {microbench_attn.V3_SHARE:g} x mean "
+        f"|plain v0 - plain v3| {v3['v0_mean_gap']:.3e}; K2 (f32 scores) "
+        f"{v3['k2_mean_err']:.3e} is not")
+    plain_v3 = lambda: masked_attention_packed_plain(
+        big, score_dtype=torch.bfloat16, **kw)
+    _check(f"packed_masked_attention bf16 scores ({geometry}, logits x "
+           f"{microbench_attn.LOGIT_SCALE:g})",
+           lambda: masked_flash_attention_packed(
+               big, score_dtype=torch.bfloat16, **kw),
+           plain_v3, plain_v3, "bf16", entries, k2_cost,
+           library=lambda: microbench_attn.sdpa(big, **kw),
+           kernel="bf16_scores", mean_err=v3["mean_err"],
+           v0_mean_gap=v3["v0_mean_gap"], k2_mean_err=v3["k2_mean_err"])
+    del big
 
     # K4: SAM windowed (70x70 padded grid, P=14) and global (64x64) at
     # ViT-B (12 heads x 64) and ViT-H (16 heads x 80)
-    for model, nh, hd in (("vit_b", 12, 64), ("vit_h", 16, 80)):
-        for name, side, patch in (("window", 70, 14), ("global", 64, 64)):
-            qkv = randn(B, side, side, 3 * nh * hd).to(torch.bfloat16)
-            bias = (0.5 * randn(B, side, side, nh * 2 * patch)).to(
+    for model in ("ViT-B", "ViT-H"):
+        for geo in ("window", "global"):
+            cost = MAIN_PATH_SHAPES[f"K4 {model} {geo}"]
+            sh = cost[1]
+            b, side, patch, nh, hd = (sh[k] for k in ("b", "hp", "patch",
+                                                      "nh", "hd"))
+            qkv = randn(b, side, side, 3 * nh * hd).to(torch.bfloat16)
+            bias = (0.5 * randn(b, side, side, nh * 2 * patch)).to(
                 torch.bfloat16)
             sc = hd ** -0.5
-            _check(f"relpos_patch_attention {model} {name} ({side}x{side}, "
+            # SDPA's operands and the expanded bias mask, built untimed
+            ops = sdpa_operands(qkv, bias, patch, nh)
+            _check(f"relpos_patch_attention {model} {geo} ({side}x{side}, "
                    f"P={patch}, {nh}x{hd})",
                    lambda: relpos_patch_attention(qkv, bias, patch, nh, sc),
                    lambda: relpos_patch_attention_plain(qkv, bias, patch, nh,
                                                         sc),
                    lambda: relpos_patch_attention_plain(
                        qkv.float(), bias.float(), patch, nh, sc),
-                   "bf16", entries, kernel="relpos_patch_attention",
-                   geometry=name, model=model)
+                   "bf16", entries, cost,
+                   library=lambda: sdpa_patches(*ops, sc, b, side, patch),
+                   kernel="relpos_patch_attention", geometry=geo,
+                   model=model)
+            del ops
 
-    # K3: five 1024^2 masks of different shape classes, exact equality
-    masks = _cca_masks(1024, 1024, seed=0).to(dev)
-    _check("cca_label (5x1024x1024: blobs, snake, noise, empty, full)",
+    # K3: 1024^2 masks of five shape classes, exact equality
+    cost = MAIN_PATH_SHAPES["K3 five 1024^2 masks"]
+    masks = _cca_masks(cost[1]["h"], cost[1]["w"], seed=0).to(dev)
+    _check(f"cca_label ({'x'.join(map(str, masks.shape))}: blobs, snake, "
+           f"noise, empty, full)",
            lambda: label_components(masks),
            lambda: label_components_plain(masks),
            lambda: label_components_plain(masks),
-           "exact", entries, kernel="cca_label")
+           "exact", entries, cost, kernel="cca_label")
 
     # K5: the flagship ALP match, N = 4 slices of 48x48 DINOv2-L features;
     # P = 576 (BG gridconv) and 577 (FG gridconv+) at val_wsize 2, about a
     # quarter of the grid prototypes invalid
-    q = randn(4, 1024, 48, 48)
-    for p in (576, 577):
-        protos = randn(p, 1024)
+    for label in ("K5 P = 576", "K5 P = 577"):
+        cost = MAIN_PATH_SHAPES[label]
+        n, c, hw, p = (cost[1][k] for k in ("n", "c", "hw", "p"))
+        side = int(hw ** 0.5)
+        q = randn(n, c, side, side)
+        protos = randn(p, c)
         valid = torch.rand(p, generator=g).to(dev) > 0.25
-        _check(f"alp_match (4x1024x48x48 f32, P={p})",
+        _check(f"alp_match ({n}x{c}x{side}x{side} f32, P={p})",
                lambda: alp_match_fused(q, protos, valid),
                lambda: alp_match_fused_plain(q, protos, valid),
                lambda: alp_match_fused_plain(q, protos, valid),
-               "f32", entries, kernel="alp_match")
+               "f32", entries, cost, kernel="alp_match")
 
     # K6 / K7: the ViT-H projection (1280 -> 1280) and MLP (1280 -> 5120 ->
-    # 1280) with their residuals on B*4096 rows, bf16; `unfused_ms` is the
-    # modules' own unfused bf16 route (cuBLAS products, separate adds)
-    m, c, hid = B * 4096, 1280, 5120
+    # 1280) with their residuals, bf16; `unfused_ms` is the modules' own
+    # unfused bf16 route (cuBLAS products, separate adds)
     bf = lambda *s, sc=1.0: (randn(*s) * sc).to(torch.bfloat16)
+    cost = MAIN_PATH_SHAPES["K6 ViT-H proj"]
+    m, c = cost[1]["m"], cost[1]["k"]
     x, res, wp, bp = bf(m, c), bf(m, c), bf(c, c, sc=0.03), bf(c, sc=0.1)
     _check(f"dense_residual ({m}x{c} x {c}x{c} bf16)",
            lambda: dense_residual(x, wp, bp, res),
            lambda: dense_residual_plain(x, wp, bp, res),
            lambda: dense_residual_plain(x.float(), wp, bp, res),
-           "bf16", entries, kernel="dense_residual",
-           unfused_ms=median_ms(lambda: res + F.linear(x, wp, bp)))
+           "bf16", entries, cost, kernel="dense_residual",
+           unfused_ms=device_ms(lambda: res + F.linear(x, wp, bp)).median_ms)
+    cost = MAIN_PATH_SHAPES["K7 ViT-H MLP"]
+    hid = cost[1]["h"]
     w1, b1 = bf(hid, c, sc=0.03), bf(hid, sc=0.1)
     w2, b2 = bf(c, hid, sc=0.015), bf(c, sc=0.1)
     _check(f"mlp_fused ({m}x{c} -> {hid} -> {c} bf16, residual)",
            lambda: mlp_fused(x, w1, b1, w2, b2, res),
            lambda: mlp_fused_plain(x, w1, b1, w2, b2, res),
            lambda: mlp_fused_plain(x.float(), w1, b1, w2, b2, res),
-           "bf16", entries, kernel="mlp_fused",
-           unfused_ms=median_ms(lambda: res + F.linear(F.gelu(
-               F.linear(x, w1, b1), approximate="tanh"), w2, b2)))
+           "bf16", entries, cost, kernel="mlp_fused",
+           unfused_ms=device_ms(lambda: res + F.linear(F.gelu(
+               F.linear(x, w1, b1), approximate="tanh"), w2,
+               b2)).median_ms)
+    del x, res, w1, w2
+
+    # K6 at the ViT-H fc2 geometry of tools/bench_fc2.py (row 13): 39200
+    # padded tokens, 5120 -> 1280; M is not a multiple of K6's 128-row tile
+    mf, kf, nf = bench_fc2.M, bench_fc2.K, bench_fc2.N
+    xf, rf = bf(mf, kf, sc=0.1), bf(mf, nf, sc=0.1)
+    wf, bfc = bf(nf, kf, sc=0.02), bf(nf, sc=0.01)
+    _check(f"dense_residual fc2 ({mf}x{kf} x {kf}x{nf} bf16)",
+           lambda: dense_residual(xf, wf, bfc, rf),
+           lambda: dense_residual_plain(xf, wf, bfc, rf),
+           lambda: dense_residual_plain(xf.float(), wf, bfc, rf),
+           "bf16", entries, tool_shapes()["row 13 fc2"], kernel="fc2",
+           unfused_ms=device_ms(
+               lambda: torch.addmm(bfc, xf, wf.T) + rf).median_ms)
     return entries
-
-
-def smooth_volume(n: int, size: int, seed: int) -> torch.Tensor:
-    """Low-frequency slices (random 21² fields upsampled, ×3), the bench.py
-    recipe: anatomy-like structure instead of white noise."""
-    from protosam_tpu_torch.ops.resize import resize_bilinear
-
-    g = torch.Generator().manual_seed(seed)
-    return resize_bilinear(torch.randn(n, 3, 21, 21, generator=g),
-                           (size, size)) * 3.0
-
-
-def _episode(size: int, device, seed: int):
-    from protosam_tpu_torch.models.io_protocol import ALPNetInput
-
-    g = torch.Generator().manual_seed(seed)
-    supp = torch.randn(1, 3, size, size, generator=g)
-    fg = torch.zeros(1, size, size)
-    q = size // 3
-    fg[:, q:2 * q, q:2 * q] = 1.0
-    return ALPNetInput(supp, fg, supp).to(device)
 
 
 def dice(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -283,6 +333,8 @@ def phase_wiring() -> None:
     from protosam_tpu_torch.entry import build_pipeline
     from protosam_tpu_torch.ops.alp import alp_match_fused
     from protosam_tpu_torch.pipeline.protosam import ProtoSAMConfig
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
 
     for fused_alp in (False, True):
         outs = {}
@@ -295,8 +347,8 @@ def phase_wiring() -> None:
                                   use_fused_alp=fused_alp)
             vol = smooth_volume(4, 126, seed=4).to(dev)
             before = alp_match_fused.launches
-            preds, scores = pipe.forward_volume(vol, _episode(126, dev, 5),
-                                                slice_batch=2)
+            preds, scores = pipe.forward_volume(
+                vol, synthetic_episode(126, dev, 5), slice_batch=2)
             if dev == "cuda" and fused_alp != (alp_match_fused.launches
                                                > before):
                 raise AssertionError("K5 launches do not follow "
@@ -317,26 +369,36 @@ def phase_wiring() -> None:
 N_SLICES, SLICE_BATCH = 8, 4
 
 
-def drive_path(tag: str, pipe, wrappers: dict, required: list[str],
+def zero_counts(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def drive_path(tag: str, pipe, counters: dict, required: list[str],
                seed: int) -> tuple[dict, torch.Tensor]:
     """``forward_volume`` over 8 smooth 672² slices at slice_batch 4, twice:
     the counts are zeroed just before the first pass and read just after
     it; the second pass must repeat the first bit for bit.  Returns the
     launch counts and the masks."""
     from protosam_tpu_torch.ops.cca import connected_components
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
 
     n, batch = N_SLICES, SLICE_BATCH
     vol = smooth_volume(n, 672, seed=seed).cuda()
-    inp = _episode(672, "cuda", seed + 1)
+    inp = synthetic_episode(672, "cuda", seed + 1)
     torch.cuda.reset_peak_memory_stats()
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     preds, scores = pipe.forward_volume(vol, inp, slice_batch=batch)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts(counters)
 
     t0 = time.perf_counter()
     preds2, scores2 = pipe.forward_volume(vol, inp, slice_batch=batch)
@@ -365,43 +427,40 @@ def drive_path(tag: str, pipe, wrappers: dict, required: list[str],
     return launches, preds
 
 
-def phase_flagship(wrappers: dict) -> dict:
+def phase_flagship(counters: dict) -> dict:
     """The flagship (SAM ViT-B) runs K1-K4."""
-    from protosam_tpu_torch.entry import build_pipeline
+    from protosam_tpu_torch.tools.pipeline_profile import build_config
 
     t0 = time.perf_counter()
-    pipe = build_pipeline("cuda")
+    pipe = build_config("flagship", "cuda")
     torch.cuda.synchronize()
     log(f"phase 4 flagship: built DINOv2-L/14 672 + SAM ViT-B bf16 in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches, _ = drive_path("phase 4 flagship", pipe, wrappers,
+    launches, _ = drive_path("phase 4 flagship", pipe, counters,
                              ["layer_norm_rows", "packed_masked_attention",
                               "relpos_patch_attention", "cca_label"], seed=6)
     return launches
 
 
-def phase_vith(wrappers: dict) -> dict:
+def phase_vith(counters: dict) -> dict:
     """The eval configuration with SAM ViT-H and all three fused routes
     runs all seven kernels; its masks are held against the same weights
     built with the fused ALP, MLP and projection routes off."""
-    from protosam_tpu_torch.eval.protosam_eval import build_models
-    from protosam_tpu_torch.utils.config import Config
+    from protosam_tpu_torch.tools.pipeline_profile import build_config
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
 
-    cfg = Config(modelname="dinov2_l14", input_size=(672, 672),
-                 protosam_sam_ver="sam_h", use_fused_alp=True, do_cca=True,
-                 dtype="bfloat16", max_ccs=8)
     t0 = time.perf_counter()
-    pipe = build_models(cfg, device="cuda", fused_mlp=True, fused_proj=True)
+    pipe = build_config("vit_h", "cuda")
     torch.cuda.synchronize()
     log(f"phase 5 vit_h: built DINOv2-L/14 672 + SAM ViT-H bf16 (fused ALP, "
         f"MLP, proj) in {time.perf_counter() - t0:.1f} s")
-    launches, preds = drive_path("phase 5 vit_h", pipe, wrappers,
-                                 list(wrappers), seed=8)
+    launches, preds = drive_path("phase 5 vit_h", pipe, counters,
+                                 list(_REPLACES), seed=8)
     del pipe
-    cfg.use_fused_alp = False
-    plain = build_models(cfg, device="cuda")
-    vol, inp = smooth_volume(N_SLICES, 672, seed=8).cuda(), _episode(
-        672, "cuda", 9)
+    plain = build_config("vit_h_unfused", "cuda")
+    vol = smooth_volume(N_SLICES, 672, seed=8).cuda()
+    inp = synthetic_episode(672, "cuda", 9)
     walls = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -437,13 +496,33 @@ _REPLACES = {
 }
 
 
+# why a kernel has no one-call PyTorch yardstick (``library_ms`` null):
+# "composite" = the library route takes two calls (see ``unfused_ms``),
+# "none" = PyTorch has no op for the function
+_NO_LIBRARY = {"cca_label": "none", "alp_match": "none",
+               "dense_residual": "composite", "mlp_fused": "composite",
+               "fc2": "composite"}
+
+
+def _numbers(row: dict) -> dict:
+    out = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}
+    if row["library_ms"] is None:
+        out["library_note"] = _NO_LIBRARY[row["kernel"]]
+    if "unfused_ms" in row:
+        out["unfused_ms"] = row["unfused_ms"]
+    return out
+
+
 def kernel_report(checks: list[dict], launches: dict,
-                  flagship_launches: dict) -> dict:
+                  flagship_launches: dict, tools: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the global geometry's
     numbers under ``global_*``; K5: P = 577).  ``launches`` counts the
     ViT-H path (phase 5), which runs all seven kernels;
-    ``flagship_launches`` the ViT-B flagship (phase 4)."""
+    ``flagship_launches`` the ViT-B flagship (phase 4).  Rows 13 and 14 of
+    the kernel table take their times from the tools' own runs (phase 6),
+    at the tools' shapes, and their launches from those runs."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -452,43 +531,121 @@ def kernel_report(checks: list[dict], launches: dict,
                  "replaces": replaces, "launches": launches[name],
                  "flagship_launches": flagship_launches.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
-                 "ms": main["ms"], "plain_ms": main["plain_ms"]}
+                 **_numbers(main)}
         if name == "relpos_patch_attention":
-            win, glob = (next(r for r in rows if r["model"] == "vit_h"
+            win, glob = (next(r for r in rows if r["model"] == "ViT-H"
                               and r["geometry"] == g)
                          for g in ("window", "global"))
-            entry.update(ms=win["ms"], plain_ms=win["plain_ms"],
+            entry.update(_numbers(win),
                          also_replaces="protosam_tpu/ops/vitdet_flash.py:264",
-                         global_ms=glob["ms"],
-                         global_plain_ms=glob["plain_ms"])
-        if "unfused_ms" in main:
-            entry["unfused_ms"] = main["unfused_ms"]
+                         **{f"global_{k}": v
+                            for k, v in _numbers(glob).items()})
         out.append(entry)
+
+    fc2_check = next(c for c in checks if c["kernel"] == "fc2")
+    fc2 = tools["fc2"]
+    out.append({"name": "dense_residual fc2 (tools/bench_fc2)",
+                "route": "cuda", "source": "protosam_tpu_torch/csrc/mlp.cu",
+                "replaces": "tools/bench_fc2.py:90",
+                "launches": tools["fc2_launches"],
+                "max_abs_err": max(fc2_check["max_abs_err"],
+                                   fc2["max_abs_err"]),
+                "ms": fc2["kernel"], "plain_ms": fc2["plain f32"],
+                "bound_ms": fc2["bound_ms"], "bound_by": fc2["bound_by"],
+                "library_ms": None, "library_note": _NO_LIBRARY["fc2"],
+                "unfused_ms": fc2["cublas addmm + r"]})
+
+    v3_b2 = next(c for c in checks if c["kernel"] == "bf16_scores")
+    attn = tools["microbench_attn"]
+    k2, v3 = attn["v0-v2"], attn["v3"]
+    v3_keys = ("mean_err", "v0_mean_gap", "k2_mean_err")
+    out.append({"name": "packed_masked_attention v0-v3 "
+                        "(tools/microbench_attn)",
+                "route": "cuda",
+                "source": "protosam_tpu_torch/csrc/attention.cu",
+                "replaces": "tools/microbench_attn.py:149",
+                "launches": sum(tools["attn_launches"].values()),
+                "v3_launches": tools["attn_launches"]["bf16_scores"],
+                "max_abs_err": max(k2["max_abs_err"], v3["max_abs_err"]),
+                "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+                "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+                "library_ms": attn["library_ms"], "v3_ms": v3["ms"],
+                "v3_plain_ms": v3["plain_ms"],
+                "v3_max_delta_vs_v0": v3["max_delta_vs_v0"],
+                # v3 held at logits x LOGIT_SCALE, at B = 8 (phase 6) and
+                # B = 2 (phase 2)
+                "v3_check": {k: attn["v3_check"][k]
+                             for k in ("max_abs_err", *v3_keys)},
+                "v3_check_b2": {"max_abs_err": v3_b2["max_abs_err"],
+                                **{k: v3_b2[k] for k in v3_keys}}})
     return {"kernels": out}
+
+
+def phase_tools(counters: dict) -> dict:
+    """The tools' own entry functions at small rep counts.  Every count is
+    zeroed just before each of the two kernel tools and read just after:
+    ``bench_fc2`` must launch K6, ``microbench_attn`` K2 and its bf16-score
+    variant.  Then ``trace_volume`` on the flagship."""
+    from protosam_tpu_torch.tools import (bench_fc2, microbench_attn,
+                                          trace_volume)
+    from protosam_tpu_torch.tools.trace_volume import short_name
+
+    def counted(fn):
+        zero_counts(counters)
+        result = fn()
+        return result, read_counts(counters)
+
+    fc2, counts = counted(lambda: bench_fc2.main(["--reps", "5"]))
+    log(f"phase 6 bench_fc2: kernel launches {counts}")
+    fc2_launches = counts["dense_residual"]
+    if fc2_launches == 0:
+        raise AssertionError("bench_fc2 never launched K6")
+    attn, counts = counted(lambda: microbench_attn.main(["--reps", "5"]))
+    attn_launches = {"packed_masked_attention":
+                     counts["packed_masked_attention"],
+                     "bf16_scores": counts["bf16_scores"]}
+    log(f"phase 6 microbench_attn: kernel launches {counts}")
+    if min(attn_launches.values()) == 0:
+        raise AssertionError(f"microbench_attn did not launch K2 and its "
+                             f"bf16-score variant: {attn_launches}")
+    tv = trace_volume.main(["--config", "flagship", "--top", "5"])
+    log(f"phase 6 trace_volume flagship: idle share "
+        f"{100 * tv['idle_share']:.1f}%, top five kernels "
+        f"{[(short_name(k['name']), round(k['ms'], 2)) for k in tv['top']]}")
+    return {"fc2": fc2, "fc2_launches": fc2_launches,
+            "microbench_attn": attn, "attn_launches": attn_launches}
 
 
 def main() -> int:
     from protosam_tpu_torch.ops.alp import alp_match_fused
-    from protosam_tpu_torch.ops.attention import masked_flash_attention_packed
+    from protosam_tpu_torch.ops.attention import \
+        masked_flash_attention_packed
     from protosam_tpu_torch.ops.cca import label_components
     from protosam_tpu_torch.ops.mlp import dense_residual, mlp_fused
     from protosam_tpu_torch.ops.norm import layer_norm_rows
     from protosam_tpu_torch.ops.vitdet_flash import relpos_patch_attention
 
-    wrappers = {"layer_norm_rows": layer_norm_rows,
-                "packed_masked_attention": masked_flash_attention_packed,
-                "relpos_patch_attention": relpos_patch_attention,
-                "cca_label": label_components,
-                "alp_match": alp_match_fused,
-                "dense_residual": dense_residual,
-                "mlp_fused": mlp_fused}
+    # kernel -> (its wrapper, the wrapper's count of its launches)
+    counters = {
+        "layer_norm_rows": (layer_norm_rows, "launches"),
+        "packed_masked_attention": (masked_flash_attention_packed,
+                                    "launches"),
+        "relpos_patch_attention": (relpos_patch_attention, "launches"),
+        "cca_label": (label_components, "launches"),
+        "alp_match": (alp_match_fused, "launches"),
+        "dense_residual": (dense_residual, "launches"),
+        "mlp_fused": (mlp_fused, "launches"),
+        "bf16_scores": (masked_flash_attention_packed,
+                        "bf16_score_launches"),
+    }
     phase_device()
     phase_build()
     checks = phase_kernels()
     phase_wiring()
-    flagship = phase_flagship(wrappers)
-    launches = phase_vith(wrappers)
-    log(json.dumps(kernel_report(checks, launches, flagship)))
+    flagship = phase_flagship(counters)
+    launches = phase_vith(counters)
+    tools = phase_tools(counters)
+    log(json.dumps(kernel_report(checks, launches, flagship, tools)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -30,6 +30,15 @@
 // run on the tensor cores through nvcuda::wmma (mma.sync, 16x16x16, f32
 // accumulate); f32 inputs take exact f32 FMAs on the CUDA cores.  hd is
 // zero-padded to a multiple of 16 in shared memory (40 -> 48).
+//
+// The bf16-score instantiation of K2 (SCORE_BF16, taken by
+// ptk_packed_masked_attention with score_bf16 set) replaces variant v3 of
+// tools/microbench_attn.py `build` (:149, `_v2_kernel` with bf16 scores):
+// q is pre-scaled and rounded to bf16, each score is rounded to bf16 after
+// the product, and p = exp(s - m) is taken on the bf16 difference and
+// rounded to bf16.  The running max, the rescale and the output sums stay
+// f32, so the online form differs from v3's one pass only at the bf16
+// level.  Only bf16 inputs take it; the main path never does.
 #include <mma.h>
 
 #include <type_traits>
@@ -199,9 +208,16 @@ __device__ __forceinline__ void warp_pv(const T* ps, const T* vs, float* ss,
   }
 }
 
+// round an f32 to the nearest bf16 and back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // grid: (ceil(n_q / 64), nh, z) with z = batch (K2) or batch * patches (K4)
-template <typename T, int DP, bool RELPOS>
+template <typename T, int DP, bool RELPOS, bool SCORE_BF16 = false>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
+  static_assert(!SCORE_BF16 || (std::is_same<T, bf16>::value && !RELPOS),
+                "bf16 scores: K2 on bf16 inputs only");
   using L = Layout<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + L::q_off);
@@ -218,6 +234,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
   const int two_p = 2 * a.patch;
 
   load_rows<T, DP, RELPOS>(qs, a, q0, a.n_q, h * a.hd, z);
+  if constexpr (SCORE_BF16) {  // q * scale, rounded to bf16 (v3)
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kBQ * DP; idx += kThreads) {
+      T* e = qs + (idx / DP) * L::LD + idx % DP;
+      *e = ptk::from_f32<T>(ptk::to_f32(*e) * a.scale);
+    }
+  }
   if constexpr (RELPOS) {
     const T* bias = static_cast<const T*>(a.bias);
     for (int idx = threadIdx.x; idx < kBQ * two_p; idx += kThreads) {
@@ -257,10 +280,14 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
       const int key = kt * kBK + col;
       float s = -INFINITY;
       if (key < a.n_k) {
-        s = srow[col] * a.scale;
-        if constexpr (RELPOS)
-          s += bias_s[row * two_p + key / a.patch] +
-               bias_s[row * two_p + a.patch + key % a.patch];
+        if constexpr (SCORE_BF16) {
+          s = round_bf16(srow[col]);  // q carries the scale
+        } else {
+          s = srow[col] * a.scale;
+          if constexpr (RELPOS)
+            s += bias_s[row * two_p + key / a.patch] +
+                 bias_s[row * two_p + a.patch + key % a.patch];
+        }
       }
       srow[col] = s;
       mx = fmaxf(mx, s);
@@ -273,7 +300,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
     for (int j = 0; j < kBK / 2; ++j) {
       const int col = half * (kBK / 2) + j;
       const float s = srow[col];
-      const T p = ptk::from_f32<T>(s == -INFINITY ? 0.f : expf(s - m_new));
+      const float d = SCORE_BF16 ? round_bf16(s - m_new) : s - m_new;
+      const T p = ptk::from_f32<T>(s == -INFINITY ? 0.f : expf(d));
       ps[row * L::LP + col] = p;
       lsum += ptk::to_f32(p);  // normalise by the weights PV really uses
     }
@@ -300,10 +328,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
     if (half * (DP / 2) + j < a.hd) out[j] = ptk::from_f32<T>(o[j] * inv);
 }
 
-template <typename T, int DP, bool RELPOS>
+template <typename T, int DP, bool RELPOS, bool SCORE_BF16>
 int launch(const AttnArgs& a, dim3 grid, cudaStream_t st) {
   const size_t smem = Layout<T, DP>::bytes(RELPOS ? a.patch : 0);
-  auto kern = attention_kernel<T, DP, RELPOS>;
+  auto kern = attention_kernel<T, DP, RELPOS, SCORE_BF16>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -311,13 +339,13 @@ int launch(const AttnArgs& a, dim3 grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool RELPOS>
+template <typename T, bool RELPOS, bool SCORE_BF16 = false>
 int dispatch_dp(const AttnArgs& a, dim3 grid, cudaStream_t st) {
   switch ((a.hd + 15) / 16 * 16) {
-    case 32: return launch<T, 32, RELPOS>(a, grid, st);
-    case 48: return launch<T, 48, RELPOS>(a, grid, st);
-    case 64: return launch<T, 64, RELPOS>(a, grid, st);
-    case 80: return launch<T, 80, RELPOS>(a, grid, st);
+    case 32: return launch<T, 32, RELPOS, SCORE_BF16>(a, grid, st);
+    case 48: return launch<T, 48, RELPOS, SCORE_BF16>(a, grid, st);
+    case 64: return launch<T, 64, RELPOS, SCORE_BF16>(a, grid, st);
+    case 80: return launch<T, 80, RELPOS, SCORE_BF16>(a, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -329,15 +357,8 @@ int dispatch(const AttnArgs& a, int dtype, dim3 grid, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// qkv: (b, s, 3 * nh * hd); out: (b, s, nh * hd).  hd <= 80 and a multiple
-// of 8 (bf16) or 4 (f32), pointers 16-byte aligned.
-extern "C" int ptk_packed_masked_attention(const void* qkv, void* out, int b,
-                                           int s, int nh, int hd,
-                                           int n_valid, float scale,
-                                           int dtype, void* stream) {
-  if (b == 0 || s == 0) return (int)cudaGetLastError();
+AttnArgs packed_args(const void* qkv, void* out, int s, int nh, int hd,
+                     int n_valid, float scale) {
   AttnArgs a{};
   a.qkv = qkv;
   a.out = out;
@@ -348,8 +369,27 @@ extern "C" int ptk_packed_masked_attention(const void* qkv, void* out, int b,
   a.nh = nh;
   a.scale = scale;
   a.seq = s;
+  return a;
+}
+
+}  // namespace
+
+// qkv: (b, s, 3 * nh * hd); out: (b, s, nh * hd).  hd <= 80 and a multiple
+// of 8 (bf16) or 4 (f32), pointers 16-byte aligned.  score_bf16 != 0 takes
+// the bf16-score instantiation (variant v3 of tools/microbench_attn.py),
+// bf16 inputs only.
+extern "C" int ptk_packed_masked_attention(const void* qkv, void* out, int b,
+                                           int s, int nh, int hd,
+                                           int n_valid, float scale,
+                                           int dtype, int score_bf16,
+                                           void* stream) {
+  if (b == 0 || s == 0) return (int)cudaGetLastError();
+  const AttnArgs a = packed_args(qkv, out, s, nh, hd, n_valid, scale);
   const dim3 grid((s + kBQ - 1) / kBQ, nh, b);
-  return dispatch<false>(a, dtype, grid, static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!score_bf16) return dispatch<false>(a, dtype, grid, st);
+  if (dtype != ptk::kBF16) return (int)cudaErrorInvalidValue;
+  return dispatch_dp<bf16, false, true>(a, grid, st);
 }
 
 // qkv: (b, hp, wp, 3 * nh * hd); bias: (b, hp, wp, nh * 2 * patch);

@@ -1,7 +1,7 @@
 """ProtoSAM evaluation: the models of an experiment ``Config`` (JAX
 ``eval/protosam_eval.py:37-94``).
 
-``build_models(cfg, device)`` maps the eval configuration to the pipeline
+``build_models(cfg, device="cuda")`` maps the eval configuration to the pipeline
 and its ``ProtoSAMConfig``, with seeded synthetic weights from
 ``cfg.seed``.  The evaluation loop (``run_eval``) and the data layer are
 not ported yet (ROADMAP §1 item 13).
@@ -21,10 +21,11 @@ SAM_VERSIONS = {"sam_h": "vit_h", "sam_b": "vit_b", "sam_l": "vit_l",
 SAM_IMAGE_SIZE = 1024
 
 
-def build_models(cfg: Config, device: torch.device | str = "cpu",
+def build_models(cfg: Config, device: torch.device | str = "cuda",
                  fused_mlp: bool = False,
                  fused_proj: bool = False) -> ProtoSAM:
-    """The ProtoSAM pipeline of ``cfg`` on ``device``.
+    """The ProtoSAM pipeline of ``cfg`` on ``device`` (the card unless the
+    caller asks for the CPU).
 
     ``cfg.use_fused_alp`` puts the ALP matching on kernel K5.  The SAM
     encoder routes come from ``fused_mlp`` / ``fused_proj`` (kernels K7 /

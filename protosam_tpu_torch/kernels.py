@@ -41,7 +41,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
 # C entry points: argument types, in order (every one returns an int error)
 _SIGNATURES = {
     "ptk_layer_norm_rows": (_P, _P, _P, _P, _L, _I, _F, _I, _I, _P),
-    "ptk_packed_masked_attention": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ptk_packed_masked_attention": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                    _P),
     "ptk_relpos_patch_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _I, _P),
     "ptk_cca_label": (_P, _P, _P, _I, _I, _I, _P),

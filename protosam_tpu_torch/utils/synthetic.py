@@ -1,4 +1,6 @@
-"""Role-aware synthetic weights from a numpy seed.
+"""Role-aware synthetic weights from a numpy seed, and the synthetic
+slices and support episode that the smoke run and the tools drive the
+pipeline with.
 
 Filling every tensor with N(0, 0.02²) would make normalisation scales ~0,
 degenerate the activations and let the data-dependent stages (CCA, prompt
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from protosam_tpu_torch.models.io_protocol import ALPNetInput
 from protosam_tpu_torch.models.layers import LayerNorm2d, TokenLayerNorm
+from protosam_tpu_torch.ops.resize import resize_bilinear
 
 _NORMS = (TokenLayerNorm, LayerNorm2d, nn.LayerNorm)
 
@@ -50,3 +54,23 @@ def materialize(module: nn.Module, device: torch.device | str,
     module.to_empty(device=device)
     module.load_state_dict(sd)
     return module.eval()
+
+
+def smooth_volume(n: int, size: int, seed: int) -> torch.Tensor:
+    """n low-frequency slices (N, 3, size, size): random 21² fields
+    upsampled, ×3 (the ``bench.py`` recipe), so the coarse mask has
+    anatomy-like structure instead of white noise."""
+    g = torch.Generator().manual_seed(seed)
+    return resize_bilinear(torch.randn(n, 3, 21, 21, generator=g),
+                           (size, size)) * 3.0
+
+
+def synthetic_episode(size: int, device: torch.device | str,
+                      seed: int) -> ALPNetInput:
+    """One support slice with a centred square label (the middle third)."""
+    g = torch.Generator().manual_seed(seed)
+    supp = torch.randn(1, 3, size, size, generator=g)
+    fg = torch.zeros(1, size, size)
+    q = size // 3
+    fg[:, q:2 * q, q:2 * q] = 1.0
+    return ALPNetInput(supp, fg, supp).to(device)

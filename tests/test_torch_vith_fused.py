@@ -359,7 +359,7 @@ _CONFIGS = [
                                                      "conf-neg-coarse",
                                                      "mask-grid4"])
 def test_build_models_matches_jax(overrides):
-    pipe = protosam_eval.build_models(Config(**overrides))
+    pipe = protosam_eval.build_models(Config(**overrides), device="cpu")
     jpipe = jeval.build_models(JExpConfig(**overrides), coarse_params={},
                                sam_params={})
     ours = dataclasses.asdict(pipe.config)
@@ -383,8 +383,9 @@ def test_build_models_matches_jax(overrides):
 def test_build_models_passes_routes_and_seed():
     cfg = Config(modelname="dinov2_t14", input_size=(126, 126),
                  protosam_sam_ver="vit_t", seed=5)
-    a = protosam_eval.build_models(cfg, fused_mlp=True, fused_proj=True)
-    b = protosam_eval.build_models(cfg)
+    a = protosam_eval.build_models(cfg, device="cpu", fused_mlp=True,
+                                   fused_proj=True)
+    b = protosam_eval.build_models(cfg, device="cpu")
     assert all(blk.fused_mlp and blk.fused_proj
                for blk in a.sam_model.image_encoder.blocks)
     assert not any(blk.fused_mlp or blk.fused_proj
@@ -403,7 +404,7 @@ def test_build_models_passes_routes_and_seed():
 ], ids=["medsam", "int8", "resnet"])
 def test_build_models_refuses_what_is_not_ported(overrides, err):
     with pytest.raises(err):
-        protosam_eval.build_models(Config(**overrides))
+        protosam_eval.build_models(Config(**overrides), device="cpu")
 
 
 def test_config_matches_jax_config():
