@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ``tools.roofline.MAIN_PATH_SHAPES``), with the error and the device
    times (``tools.timing.device_ms``) of both and of the library call;
    K2's bf16-score instantiation is held to the plain v3 at large logits
-   (``tools.microbench_attn.check_v3``);
+   (``tools.microbench_attn.check_v3``), and K4 to its plain version at
+   scores spread ~4 in all four geometries, where a swapped-bias control
+   must fail (``tools.bench_attn.check_bias``);
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
    once as built by default and once with the fused ALP match (K5);
@@ -155,7 +157,10 @@ def phase_kernels() -> list[dict]:
     from protosam_tpu_torch.ops.vitdet_flash import (
         relpos_patch_attention, relpos_patch_attention_plain)
     from protosam_tpu_torch.tools import bench_fc2, microbench_attn
-    from protosam_tpu_torch.tools.bench_attn import (sdpa_operands,
+    from protosam_tpu_torch.tools.bench_attn import (BIAS_SHARE,
+                                                     bias_check_inputs,
+                                                     check_bias,
+                                                     sdpa_operands,
                                                      sdpa_patches)
     from protosam_tpu_torch.tools.roofline import (MAIN_PATH_SHAPES,
                                                    tool_shapes)
@@ -251,6 +256,18 @@ def phase_kernels() -> list[dict]:
                    kernel="relpos_patch_attention", geometry=geo,
                    model=model)
             del ops
+            # the bias at scores spread ~4, against a swapped-bias control
+            big = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in
+                   bias_check_inputs(b, side, patch, nh, hd))
+            chk = check_bias(*big, patch, nh, sc)
+            entries[-1]["bias_check"] = chk
+            log(f"phase 2 kernel relpos_patch_attention {model} {geo} "
+                f"check_bias at scores spread ~4: mean |kernel - plain| "
+                f"{chk['mean_err']:.3e} <= {BIAS_SHARE:g} x mean |plain - "
+                f"plain with bias_h, bias_w swapped| "
+                f"{chk['swap_mean_gap']:.3e}; max {chk['max_abs_err']:.3e} "
+                f"(bound {chk['bound']:.3e}), swapped control max "
+                f"{chk['swap_max_err']:.3e} fails it")
 
     # K3: 1024^2 masks of five shape classes, exact equality
     cost = MAIN_PATH_SHAPES["K3 five 1024^2 masks"]
@@ -483,7 +500,7 @@ _REPLACES = {
                         "protosam_tpu/ops/norm.py:86"),
     "packed_masked_attention": ("protosam_tpu_torch/csrc/attention.cu",
                                 "protosam_tpu/ops/attention.py:161"),
-    "relpos_patch_attention": ("protosam_tpu_torch/csrc/attention.cu",
+    "relpos_patch_attention": ("protosam_tpu_torch/csrc/relpos_attention.cu",
                                "protosam_tpu/ops/vitdet_flash.py:478"),
     "cca_label": ("protosam_tpu_torch/csrc/cca.cu",
                   "protosam_tpu/ops/cca_pallas.py:171"),
@@ -517,8 +534,10 @@ def _numbers(row: dict) -> dict:
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, tools: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
-    bf16 rows; K4: the ViT-H window geometry, with the global geometry's
-    numbers under ``global_*``; K5: P = 577).  ``launches`` counts the
+    bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
+    geometry's numbers under ``global_*``, the flagship's ViT-B window and
+    global ones under ``vit_b_*`` and ``vit_b_global_*``, and each
+    geometry's ``check_bias`` result; K5: P = 577).  ``launches`` counts the
     ViT-H path (phase 5), which runs all seven kernels;
     ``flagship_launches`` the ViT-B flagship (phase 4).  Rows 13 and 14 of
     the kernel table take their times from the tools' own runs (phase 6),
@@ -533,13 +552,24 @@ def kernel_report(checks: list[dict], launches: dict,
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name == "relpos_patch_attention":
-            win, glob = (next(r for r in rows if r["model"] == "ViT-H"
-                              and r["geometry"] == g)
-                         for g in ("window", "global"))
-            entry.update(_numbers(win),
-                         also_replaces="protosam_tpu/ops/vitdet_flash.py:264",
-                         **{f"global_{k}": v
-                            for k, v in _numbers(glob).items()})
+            row = lambda m, g: next(r for r in rows if r["model"] == m
+                                    and r["geometry"] == g)
+            entry.update(
+                _numbers(row("ViT-H", "window")),
+                f32_source="protosam_tpu_torch/csrc/attention.cu",
+                also_replaces="protosam_tpu/ops/vitdet_flash.py:264",
+                **{f"{prefix}{k}": v
+                   for prefix, m, g in (("global_", "ViT-H", "global"),
+                                        ("vit_b_", "ViT-B", "window"),
+                                        ("vit_b_global_", "ViT-B", "global"))
+                   for k, v in _numbers(row(m, g)).items()},
+                bias_check={f"{m} {g}": {k: row(m, g)["bias_check"][k]
+                                         for k in ("mean_err",
+                                                   "swap_mean_gap",
+                                                   "max_abs_err",
+                                                   "swap_max_err")}
+                            for m in ("ViT-B", "ViT-H")
+                            for g in ("window", "global")})
         out.append(entry)
 
     fc2_check = next(c for c in checks if c["kernel"] == "fc2")

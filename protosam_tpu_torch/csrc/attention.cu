@@ -1,5 +1,7 @@
-// K2 packed_masked_attention and K4 relpos_patch_attention: one
+// K2 packed_masked_attention, and K4 relpos_patch_attention in f32: one
 // online-softmax attention core read straight from a packed qkv buffer.
+// K4's bf16 kernel, the one the main path runs, is relpos_attention.cu;
+// its C entry takes the f32 instantiation here (relpos_attention_f32).
 //
 // K2 replaces protosam_tpu/ops/attention.py `_packed_aug_kernel` (:161,
 // the default of `_masked_flash_packed`; its alternatives
@@ -19,7 +21,8 @@
 //
 // Bound on the card: the two products per key tile (2 * 64 * 64 * hd
 // flops) against one 64 x hd tile of K and of V read per block; at hd 64
-// this is compute-heavy enough for the tensor cores.  The TPU kernels kept
+// this is compute-heavy enough for the tensor cores (K2 in bf16; K4's f32
+// parity instantiation runs on the CUDA cores).  The TPU kernels kept
 // the whole (S, S) f32 score block in VMEM; a Hopper block has at most
 // 227 KB of shared memory, so this core streams 64-key tiles with a
 // running max and sum in f32 (flash attention), and nothing quadratic
@@ -350,10 +353,9 @@ int dispatch_dp(const AttnArgs& a, dim3 grid, cudaStream_t st) {
   }
 }
 
-template <bool RELPOS>
 int dispatch(const AttnArgs& a, int dtype, dim3 grid, cudaStream_t st) {
-  if (dtype == ptk::kBF16) return dispatch_dp<bf16, RELPOS>(a, grid, st);
-  if (dtype == ptk::kF32) return dispatch_dp<float, RELPOS>(a, grid, st);
+  if (dtype == ptk::kBF16) return dispatch_dp<bf16, false>(a, grid, st);
+  if (dtype == ptk::kF32) return dispatch_dp<float, false>(a, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -387,19 +389,19 @@ extern "C" int ptk_packed_masked_attention(const void* qkv, void* out, int b,
   const AttnArgs a = packed_args(qkv, out, s, nh, hd, n_valid, scale);
   const dim3 grid((s + kBQ - 1) / kBQ, nh, b);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (!score_bf16) return dispatch<false>(a, dtype, grid, st);
+  if (!score_bf16) return dispatch(a, dtype, grid, st);
   if (dtype != ptk::kBF16) return (int)cudaErrorInvalidValue;
   return dispatch_dp<bf16, false, true>(a, grid, st);
 }
 
-// qkv: (b, hp, wp, 3 * nh * hd); bias: (b, hp, wp, nh * 2 * patch);
-// out: (b, hp, wp, nh * hd); hp and wp multiples of patch, patch <= 64.
-extern "C" int ptk_relpos_patch_attention(const void* qkv, const void* bias,
-                                          void* out, int b, int hp, int wp,
-                                          int nh, int hd, int patch,
-                                          float scale, int dtype,
-                                          void* stream) {
-  if (b == 0 || hp == 0 || wp == 0) return (int)cudaGetLastError();
+// K4's f32 instantiation, the parity type; relpos_attention.cu's
+// ptk_relpos_patch_attention takes it for float32 inputs.  qkv: (b, hp, wp,
+// 3 * nh * hd); bias: (b, hp, wp, nh * 2 * patch); out: (b, hp, wp, nh *
+// hd); hp and wp multiples of patch, patch <= 64.
+namespace ptk {
+int relpos_attention_f32(const void* qkv, const void* bias, void* out, int b,
+                         int hp, int wp, int nh, int hd, int patch,
+                         float scale, cudaStream_t stream) {
   AttnArgs a{};
   a.qkv = qkv;
   a.bias = bias;
@@ -416,5 +418,6 @@ extern "C" int ptk_relpos_patch_attention(const void* qkv, const void* bias,
   a.nwy = hp / patch;
   a.nwx = wp / patch;
   const dim3 grid((patch * patch + kBQ - 1) / kBQ, nh, b * a.nwy * a.nwx);
-  return dispatch<true>(a, dtype, grid, static_cast<cudaStream_t>(stream));
+  return dispatch_dp<float, true>(a, grid, stream);
 }
+}  // namespace ptk

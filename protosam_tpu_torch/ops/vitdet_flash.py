@@ -64,8 +64,9 @@ def relpos_patch_attention(qkv: torch.Tensor, bias: torch.Tensor,
                            scale: float) -> torch.Tensor:
     """Rel-pos attention inside every ``patch``×``patch`` patch of qkv
     (B, Hp, Wp, 3C) with compact bias (B, Hp, Wp, nh·2·patch); returns
-    (B, Hp, Wp, C).  Kernel K4 (``csrc/attention.cu``) on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    (B, Hp, Wp, C).  Kernel K4 on a CUDA tensor (bf16:
+    ``csrc/relpos_attention.cu``; f32: ``csrc/attention.cu``), the plain
+    version on a CPU tensor."""
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     hd = c // num_heads

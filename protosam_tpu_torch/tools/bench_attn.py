@@ -9,6 +9,16 @@ additive (patches, heads, P², P²) mask.  The mask, and the head-split,
 window-partitioned q, k and v that SDPA takes, are built outside the
 timing: the SDPA time is that of the attention alone, as K4's is.
 
+At the timing inputs (qkv σ 0.3, bias σ 0.5) the scores spread by well
+under one, and a kernel that read the bias at the wrong place would stay
+inside the bf16 bound.  ``check_bias`` holds K4 on inputs from
+``bias_check_inputs`` instead: qkv σ √2 and bias σ 2, so q·k·scale and
+each bias factor have σ ≈ 2 (scores spread about 4).  There its mean error
+against the plain version must stay under ``BIAS_SHARE`` of the mean
+distance between the plain version and the plain version with bias_h and
+bias_w swapped, and that swapped control must itself fail the bf16 bound,
+which shows the inputs tell a right bias from a wrong one.
+
     python3 -m protosam_tpu_torch.tools.bench_attn [--reps 10]
 """
 
@@ -29,6 +39,51 @@ from protosam_tpu_torch.tools.timing import (bf16_error, device_ms, log,
 
 MODELS = {"vit_b": (12, 64), "vit_h": (16, 80)}
 GEOMETRIES = {"window": (70, 14), "global": (64, 64)}  # (grid side, patch)
+QKV_SIGMA, BIAS_SIGMA = 2 ** 0.5, 2.0  # q·k·scale and bias factors σ ≈ 2
+BIAS_SHARE = 0.25
+
+
+def bias_check_inputs(b: int, side: int, patch: int, nh: int, hd: int,
+                      seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(qkv, bias) as float32 numpy arrays for ``check_bias``: qkv (b,
+    side, side, 3·nh·hd) of σ √2, bias (b, side, side, nh·2·patch) of
+    σ 2."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, side, side, 3 * nh * hd), dtype=np.float32)
+    bias = rng.standard_normal((b, side, side, nh * 2 * patch),
+                               dtype=np.float32)
+    return qkv * np.float32(QKV_SIGMA), bias * np.float32(BIAS_SIGMA)
+
+
+def swap_bias(bias: torch.Tensor, patch: int, num_heads: int) -> torch.Tensor:
+    """The compact bias with bias_h and bias_w swapped in every head."""
+    shape = bias.shape
+    return bias.reshape(*shape[:-1], num_heads, 2, patch).flip(-2).reshape(
+        shape)
+
+
+def check_bias(qkv: torch.Tensor, bias: torch.Tensor, patch: int, nh: int,
+               scale: float) -> dict:
+    """Hold K4 against its f32 plain version at a score spread of about 4
+    (see the module docstring); raises where it fails, or where the
+    swapped-bias control does not.  Mean errors are over every output
+    element."""
+    args = (patch, nh, scale)
+    want = relpos_patch_attention_plain(qkv.float(), bias.float(), *args)
+    swapped = relpos_patch_attention_plain(
+        qkv.float(), swap_bias(bias, patch, nh).float(), *args)
+    got = relpos_patch_attention(qkv, bias, *args)
+    err, tol = bf16_error(got, want)
+    swap_err, _ = bf16_error(swapped, want)
+    mean = lambda x: (x.float() - want).abs().mean().item()
+    out = {"max_abs_err": err, "bound": tol, "mean_err": mean(got),
+           "swap_mean_gap": mean(swapped), "swap_max_err": swap_err}
+    if err > tol or out["mean_err"] > BIAS_SHARE * out["swap_mean_gap"]:
+        raise AssertionError(f"K4 misreads the rel-pos bias: {out}")
+    if swap_err <= tol:
+        raise AssertionError(f"the swapped-bias control passes the bf16 "
+                             f"bound: the inputs cannot tell: {out}")
+    return out
 
 
 def sdpa_operands(qkv: torch.Tensor, bias: torch.Tensor, patch: int,
@@ -87,17 +142,25 @@ def run(reps: int = 10, b: int = 8) -> dict:
             plain = device_ms(lambda: relpos_patch_attention_plain(*args),
                               reps=2, runs=3)
             sd = device_ms(lib, reps=reps)
+            del q, k, v, mask
+            big = (torch.from_numpy(x).to(device=dev, dtype=torch.bfloat16)
+                   for x in bias_check_inputs(b, side, patch, nh, hd))
+            chk = check_bias(*big, patch, nh, scale)
             out[f"{model} {geom}"] = {
                 "ms": t.median_ms, "spread_ms": t.spread_ms,
                 "plain_ms": plain.median_ms, "library_ms": sd.median_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": err}
+                "max_abs_err": err, "bias_check": chk}
             log(f"K4 {model} {geom} (B={b}, {side}x{side}, P={patch}, "
                 f"{nh}x{hd}): kernel {t} = {flops / t.median_ms / 1e9:.1f} "
-                f"TFLOP/s; plain {plain}; SDPA + additive mask {sd} "
+                f"TFLOP/s, {100 * bound_ms / t.median_ms:.1f}% of the "
+                f"bound; plain {plain}; SDPA + additive mask {sd} "
                 f"(err vs plain {lib_err:.2e}); bound {bound_ms:.4f} ms "
-                f"({bound_by}); max_abs_err {err:.2e} (bound {tol:.2e})")
-            del q, k, v, mask
+                f"({bound_by}); max_abs_err {err:.2e} (bound {tol:.2e}); "
+                f"check_bias: mean err {chk['mean_err']:.2e} vs swapped "
+                f"gap {chk['swap_mean_gap']:.2e}, max {chk['max_abs_err']:.2e}"
+                f" (swapped {chk['swap_max_err']:.2e}, bound "
+                f"{chk['bound']:.2e})")
     return out
 
 

@@ -36,6 +36,7 @@ from protosam_tpu_torch.ops import pooling as tpool
 from protosam_tpu_torch.ops import resize as tresize
 from protosam_tpu_torch.ops import vitdet_flash as tvf
 from protosam_tpu_torch.ops.morphology import dilate as tdilate
+from protosam_tpu_torch.tools import bench_attn
 
 torch.set_num_threads(2)
 
@@ -153,6 +154,45 @@ def test_global_attention_matches_jax_kernel_64_grid():
         interpret=True))
     got = tvf.global_packed_attention(t(qkv), t(bias), 2, 0.25).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("side,patch", [(28, 14), (16, 16)])
+def test_relpos_attention_matches_jax_kernel_at_score_spread_4(side, patch):
+    """The windowed 28² grid (P = 14) and the global 16² grid on
+    ``bench_attn.check_bias``'s inputs: q·k·scale and each bias factor of
+    σ ≈ 2, where a misplaced bias term shows."""
+    qkv, bias = bench_attn.bias_check_inputs(1, side, patch, 2, 16, seed=11)
+    scale = 16 ** -0.5
+    if patch == side:
+        want = jvf.global_packed_attention(
+            jnp.asarray(qkv), jnp.asarray(bias), 2, scale, rows_per_blk=8,
+            interpret=True)
+    else:
+        want = jvf.window_packed_attention(
+            jnp.asarray(qkv), jnp.asarray(bias), patch, 2, scale,
+            interpret=True, flat=True)
+    got = tvf.relpos_patch_attention(t(qkv), t(bias), patch, 2, scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("side,patch", [(28, 14), (16, 16)])
+def test_check_bias_control_fails_the_bf16_bound(side, patch, monkeypatch):
+    """On the CPU the wrapper is the plain version, so ``check_bias`` holds
+    its bf16 run against its f32 run; the swapped-bias control must land
+    beyond the bf16 bound, and a kernel that swapped the two bias factors
+    must fail the check."""
+    qkv, bias = (torch.from_numpy(x).to(torch.bfloat16) for x in
+                 bench_attn.bias_check_inputs(1, side, patch, 2, 16))
+    scale = 16 ** -0.5
+    out = bench_attn.check_bias(qkv, bias, patch, 2, scale)
+    assert out["swap_max_err"] > 10 * out["bound"]
+    assert out["mean_err"] <= bench_attn.BIAS_SHARE * out["swap_mean_gap"]
+    monkeypatch.setattr(
+        bench_attn, "relpos_patch_attention",
+        lambda q, b, p, nh, sc: tvf.relpos_patch_attention_plain(
+            q, bench_attn.swap_bias(b, p, nh), p, nh, sc))
+    with pytest.raises(AssertionError, match="misreads"):
+        bench_attn.check_bias(qkv, bias, patch, 2, scale)
 
 
 # --------------------------------------------------- resize and pooling
@@ -281,15 +321,33 @@ def test_packed_attention_kernel_matches_plain(cuda, dtype, nh, hd, s,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("side,patch,nh,hd", [
     (28, 14, 4, 40), (16, 16, 4, 40), (70, 14, 4, 64),
-    (28, 14, 16, 80), (16, 16, 16, 80)])  # hd 80, 16 heads: SAM ViT-H
+    (28, 14, 16, 80), (16, 16, 16, 80),  # hd 80, 16 heads: SAM ViT-H
+    # the main path's shapes: global ViT-B and ViT-H (at B = 1), and the
+    # ViT-H windowed grid, whose last key tile holds 4 of 64 keys
+    (64, 64, 12, 64), (64, 64, 16, 80), (70, 14, 16, 80)])
 def test_relpos_kernel_matches_plain(cuda, dtype, side, patch, nh, hd):
     g = torch.Generator().manual_seed(2)
-    qkv = torch.randn(2, side, side, 3 * nh * hd, generator=g).to(cuda,
+    b = 1 if side == patch == 64 else 2
+    qkv = torch.randn(b, side, side, 3 * nh * hd, generator=g).to(cuda,
                                                                   dtype)
-    bias = (0.5 * torch.randn(2, side, side, nh * 2 * patch,
+    bias = (0.5 * torch.randn(b, side, side, nh * 2 * patch,
                               generator=g)).to(cuda, dtype)
     got = tvf.relpos_patch_attention(qkv, bias, patch, nh, 0.2).float()
     want = tvf.relpos_patch_attention_plain(qkv.float(), bias.float(), patch,
                                             nh, 0.2)
+    # f32: exact FMAs; bf16: 2e-2, within tools.timing's bf16 bound
+    # 2e-2 x max(1, max|ref|)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,patch,nh,hd", [(70, 14, 16, 80),
+                                              (64, 64, 12, 64)])
+def test_relpos_kernel_reads_the_bias_right(cuda, side, patch, nh, hd):
+    """``bench_attn.check_bias`` at scores spread ~4: within a quarter of
+    the swapped-bias gap, while the swapped control fails (it raises
+    otherwise)."""
+    qkv, bias = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in
+                 bench_attn.bias_check_inputs(1, side, patch, nh, hd))
+    bench_attn.check_bias(qkv, bias, patch, nh, hd ** -0.5)
