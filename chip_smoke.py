@@ -10,10 +10,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
    of the flagship and of the ViT-H configuration (B = 2 slices, from
    ``tools.roofline.MAIN_PATH_SHAPES``), with the error and the device
    times (``tools.timing.device_ms``) of both and of the library call;
-   K2's bf16-score instantiation is held to the plain v3 at large logits
-   (``tools.microbench_attn.check_v3``), and K4 to its plain version at
-   scores spread ~4 in all four geometries, where a swapped-bias control
-   must fail (``tools.bench_attn.check_bias``);
+   K2 is held to its plain version with the keys past n_valid 8 times
+   larger, where an unmasked control must fail
+   (``tools.bench_dino_flash.check_mask``), its bf16-score instantiation to
+   the plain v3 at large logits (``tools.microbench_attn.check_v3``), and K4
+   to its plain version at scores spread ~4 in all four geometries, where a
+   swapped-bias control must fail (``tools.bench_attn.check_bias``);
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
    once as built by default and once with the fused ALP match (K5);
@@ -156,7 +158,8 @@ def phase_kernels() -> list[dict]:
                                              layer_norm_rows_plain)
     from protosam_tpu_torch.ops.vitdet_flash import (
         relpos_patch_attention, relpos_patch_attention_plain)
-    from protosam_tpu_torch.tools import bench_fc2, microbench_attn
+    from protosam_tpu_torch.tools import (bench_dino_flash, bench_fc2,
+                                          microbench_attn)
     from protosam_tpu_torch.tools.bench_attn import (BIAS_SHARE,
                                                      bias_check_inputs,
                                                      check_bias,
@@ -206,6 +209,19 @@ def phase_kernels() -> list[dict]:
            "bf16", entries, k2_cost,
            library=lambda: microbench_attn.sdpa(qkv, **kw),
            kernel="packed_masked_attention")
+    # the mask, with the keys and values past n_valid 8 times larger,
+    # against an unmasked control
+    del qkv
+    masked = torch.from_numpy(bench_dino_flash.mask_check_inputs(
+        sh["b"], sh["s"], sh["nh"], sh["hd"], sh["n_valid"])).to(
+        dev, torch.bfloat16)
+    chk = bench_dino_flash.check_mask(masked, **kw)
+    entries[-1]["mask_check"] = chk
+    del masked
+    log(f"phase 2 kernel packed_masked_attention check_mask (keys past "
+        f"n_valid x {bench_dino_flash.MASK_SCALE:g}): max_abs_err "
+        f"{chk['max_abs_err']:.3e} (bound {chk['bound']:.3e}); unmasked "
+        f"control {chk['control_max_err']:.3e} fails it")
     # K2's bf16-score instantiation (microbench_attn v3) on the tool's
     # input times LOGIT_SCALE (scores spread ~4), where a kernel that
     # skipped v3's roundings would be told apart
@@ -498,7 +514,7 @@ def phase_vith(counters: dict) -> dict:
 _REPLACES = {
     "layer_norm_rows": ("protosam_tpu_torch/csrc/layer_norm.cu",
                         "protosam_tpu/ops/norm.py:86"),
-    "packed_masked_attention": ("protosam_tpu_torch/csrc/attention.cu",
+    "packed_masked_attention": ("protosam_tpu_torch/csrc/packed_attention.cu",
                                 "protosam_tpu/ops/attention.py:161"),
     "relpos_patch_attention": ("protosam_tpu_torch/csrc/relpos_attention.cu",
                                "protosam_tpu/ops/vitdet_flash.py:478"),
@@ -541,7 +557,9 @@ def kernel_report(checks: list[dict], launches: dict,
     ViT-H path (phase 5), which runs all seven kernels;
     ``flagship_launches`` the ViT-B flagship (phase 4).  Rows 13 and 14 of
     the kernel table take their times from the tools' own runs (phase 6),
-    at the tools' shapes, and their launches from those runs."""
+    at the tools' shapes, and their launches from those runs.  K2 carries
+    its ``check_mask`` result; its f32 and bf16-score instantiations live
+    in ``csrc/attention.cu``."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -551,6 +569,9 @@ def kernel_report(checks: list[dict], launches: dict,
                  "flagship_launches": flagship_launches.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
+        if name == "packed_masked_attention":
+            entry.update(f32_source="protosam_tpu_torch/csrc/attention.cu",
+                         mask_check=main["mask_check"])
         if name == "relpos_patch_attention":
             row = lambda m, g: next(r for r in rows if r["model"] == m
                                     and r["geometry"] == g)
@@ -592,7 +613,8 @@ def kernel_report(checks: list[dict], launches: dict,
     out.append({"name": "packed_masked_attention v0-v3 "
                         "(tools/microbench_attn)",
                 "route": "cuda",
-                "source": "protosam_tpu_torch/csrc/attention.cu",
+                "source": "protosam_tpu_torch/csrc/packed_attention.cu",
+                "v3_source": "protosam_tpu_torch/csrc/attention.cu",
                 "replaces": "tools/microbench_attn.py:149",
                 "launches": sum(tools["attn_launches"].values()),
                 "v3_launches": tools["attn_launches"]["bf16_scores"],

@@ -1,7 +1,9 @@
-// K2 packed_masked_attention, and K4 relpos_patch_attention in f32: one
-// online-softmax attention core read straight from a packed qkv buffer.
-// K4's bf16 kernel, the one the main path runs, is relpos_attention.cu;
-// its C entry takes the f32 instantiation here (relpos_attention_f32).
+// K2 packed_masked_attention in f32 and with bf16 scores, and K4
+// relpos_patch_attention in f32: one online-softmax attention core read
+// straight from a packed qkv buffer.  The bf16 kernels the main path runs
+// are packed_attention.cu (K2) and relpos_attention.cu (K4); their C
+// entries take the instantiations here (packed_attention_f32_or_bf16_scores,
+// relpos_attention_f32).
 //
 // K2 replaces protosam_tpu/ops/attention.py `_packed_aug_kernel` (:161,
 // the default of `_masked_flash_packed`; its alternatives
@@ -21,8 +23,8 @@
 //
 // Bound on the card: the two products per key tile (2 * 64 * 64 * hd
 // flops) against one 64 x hd tile of K and of V read per block; at hd 64
-// this is compute-heavy enough for the tensor cores (K2 in bf16; K4's f32
-// parity instantiation runs on the CUDA cores).  The TPU kernels kept
+// this is compute-heavy enough for the tensor cores (K2 with bf16 scores;
+// the f32 parity instantiations run on the CUDA cores).  The TPU kernels kept
 // the whole (S, S) f32 score block in VMEM; a Hopper block has at most
 // 227 KB of shared memory, so this core streams 64-key tiles with a
 // running max and sum in f32 (flash attention), and nothing quadratic
@@ -35,7 +37,7 @@
 // zero-padded to a multiple of 16 in shared memory (40 -> 48).
 //
 // The bf16-score instantiation of K2 (SCORE_BF16, taken by
-// ptk_packed_masked_attention with score_bf16 set) replaces variant v3 of
+// ptk_packed_masked_attention with score_bf16 set) is the port of variant v3 of
 // tools/microbench_attn.py `build` (:149, `_v2_kernel` with bf16 scores):
 // q is pre-scaled and rounded to bf16, each score is rounded to bf16 after
 // the product, and p = exp(s - m) is taken on the bf16 difference and
@@ -353,12 +355,6 @@ int dispatch_dp(const AttnArgs& a, dim3 grid, cudaStream_t st) {
   }
 }
 
-int dispatch(const AttnArgs& a, int dtype, dim3 grid, cudaStream_t st) {
-  if (dtype == ptk::kBF16) return dispatch_dp<bf16, false>(a, grid, st);
-  if (dtype == ptk::kF32) return dispatch_dp<float, false>(a, grid, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 AttnArgs packed_args(const void* qkv, void* out, int s, int nh, int hd,
                      int n_valid, float scale) {
   AttnArgs a{};
@@ -376,29 +372,31 @@ AttnArgs packed_args(const void* qkv, void* out, int s, int nh, int hd,
 
 }  // namespace
 
-// qkv: (b, s, 3 * nh * hd); out: (b, s, nh * hd).  hd <= 80 and a multiple
-// of 8 (bf16) or 4 (f32), pointers 16-byte aligned.  score_bf16 != 0 takes
-// the bf16-score instantiation (variant v3 of tools/microbench_attn.py),
-// bf16 inputs only.
-extern "C" int ptk_packed_masked_attention(const void* qkv, void* out, int b,
-                                           int s, int nh, int hd,
-                                           int n_valid, float scale,
-                                           int dtype, int score_bf16,
-                                           void* stream) {
-  if (b == 0 || s == 0) return (int)cudaGetLastError();
+namespace ptk {
+
+// K2's CUDA-core f32 instantiation (the parity type) and its bf16-score
+// instantiation (score_bf16, bf16 inputs only: variant v3 of
+// tools/microbench_attn.py); packed_attention.cu's
+// ptk_packed_masked_attention takes them.  qkv: (b, s, 3 * nh * hd); out:
+// (b, s, nh * hd); hd <= 80 and a multiple of 8 (bf16) or 4 (f32),
+// pointers 16-byte aligned.
+int packed_attention_f32_or_bf16_scores(const void* qkv, void* out, int b,
+                                        int s, int nh, int hd, int n_valid,
+                                        float scale, int dtype,
+                                        int score_bf16, cudaStream_t stream) {
   const AttnArgs a = packed_args(qkv, out, s, nh, hd, n_valid, scale);
   const dim3 grid((s + kBQ - 1) / kBQ, nh, b);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (!score_bf16) return dispatch(a, dtype, grid, st);
-  if (dtype != ptk::kBF16) return (int)cudaErrorInvalidValue;
-  return dispatch_dp<bf16, false, true>(a, grid, st);
+  if (score_bf16)
+    return dtype == kBF16 ? dispatch_dp<bf16, false, true>(a, grid, stream)
+                          : (int)cudaErrorInvalidValue;
+  return dtype == kF32 ? dispatch_dp<float, false>(a, grid, stream)
+                       : (int)cudaErrorInvalidValue;
 }
 
 // K4's f32 instantiation, the parity type; relpos_attention.cu's
 // ptk_relpos_patch_attention takes it for float32 inputs.  qkv: (b, hp, wp,
 // 3 * nh * hd); bias: (b, hp, wp, nh * 2 * patch); out: (b, hp, wp, nh *
 // hd); hp and wp multiples of patch, patch <= 64.
-namespace ptk {
 int relpos_attention_f32(const void* qkv, const void* bias, void* out, int b,
                          int hp, int wp, int nh, int hd, int patch,
                          float scale, cudaStream_t stream) {

@@ -10,8 +10,8 @@ The op wrappers (``ops/norm.layer_norm_rows``,
 ``ops/attention.masked_flash_attention_packed``, ``ops/cca.label_components``,
 ``ops/vitdet_flash.relpos_patch_attention``, ``ops/alp.alp_match_fused``,
 ``ops/mlp.dense_residual``, ``ops/mlp.mlp_fused``) allocate outputs with
-``torch.empty``, launch on PyTorch's current stream and raise on a non-zero
-``cudaGetLastError()``.
+``torch.empty``, launch through ``launch`` on their tensors' device and its
+current stream, and raise on a non-zero ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -124,17 +124,23 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` and raise if it reports a CUDA error."""
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C entry point ``name`` on ``device``, the device of its tensors
+    (``check_cuda`` returns it), with that device's current stream appended
+    as the last argument, and raise if it reports a CUDA error.  The call
+    runs under ``torch.cuda.device(device)``, so ``cudaFuncSetAttribute`` and
+    the launch act on the tensors' card whatever the current one is."""
     lib = library()
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, stream(device))
     if err:
         msg = lib.ptk_error_string(err).decode()
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: torch.device) -> int:
+    """The current stream of ``device``, as the C entries take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -143,9 +149,10 @@ def dtype_code(t: torch.Tensor) -> int:
     return _DTYPE_CODES[t.dtype]
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """Validate what a kernel's pointers may point at: CUDA, contiguous,
-    16-byte aligned, all on one device."""
+    16-byte aligned, all on one device.  Returns that device, the one the
+    kernel must launch on (``launch(..., device=)``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -156,3 +163,4 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              "not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor is not 16-byte aligned")
+    return dev

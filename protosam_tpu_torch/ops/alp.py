@@ -90,10 +90,9 @@ def alp_match_fused(qry_fts: torch.Tensor, protos: torch.Tensor,
     pn = safe_l2_normalize(protos.float(), dim=1).contiguous()
     v = valid.to(torch.uint8).contiguous()
     out = torch.empty((n, 1, h, w), dtype=torch.float32, device=q.device)
-    kernels.check_cuda("alp_match_fused", q, pn, v, out)
+    dev = kernels.check_cuda("alp_match_fused", q, pn, v, out)
     kernels.launch("ptk_alp_match", q.data_ptr(), pn.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), n, c, h * w, p,
-                   kernels.stream())
+                   v.data_ptr(), out.data_ptr(), n, c, h * w, p, device=dev)
     alp_match_fused.launches += 1
     return out
 

@@ -74,10 +74,12 @@ def masked_flash_attention_packed(qkv: torch.Tensor, *, scale: float,
 
     qkv: (B, S, 3*C) straight from the fused qkv projection, channel order
     (3, heads, head_dim); returns (B, S, C).  Keys at index >= n_valid are
-    excluded from the softmax.  Kernel K2 (``csrc/attention.cu``) on a CUDA
-    tensor, the plain version on a CPU tensor.  ``score_dtype=
-    torch.bfloat16`` (bf16 inputs only) rounds the scores as
-    microbench_attn's v3 does; its launches are counted in
+    excluded from the softmax.  Kernel K2 on a CUDA tensor (bf16:
+    ``csrc/packed_attention.cu``, on ``wgmma``; f32: the CUDA-core
+    instantiation in ``csrc/attention.cu``), the plain version on a CPU
+    tensor.  ``score_dtype=torch.bfloat16`` (bf16 inputs only) rounds the
+    scores as microbench_attn's v3 does, on ``csrc/attention.cu``'s
+    bf16-score instantiation; its launches are counted in
     ``bf16_score_launches``, apart from K2's ``launches``.
     """
     bf16_scores = _bf16_scores(qkv, score_dtype)
@@ -96,11 +98,11 @@ def masked_flash_attention_packed(qkv: torch.Tensor, *, scale: float,
     if n_valid < 1:
         raise ValueError("packed attention: n_valid must be >= 1")
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
-    kernels.check_cuda("packed_masked_attention", qkv, out)
+    dev = kernels.check_cuda("packed_masked_attention", qkv, out)
     kernels.launch("ptk_packed_masked_attention", qkv.data_ptr(),
                    out.data_ptr(), b, s, num_heads, hd, n_valid,
                    float(scale), kernels.dtype_code(qkv), int(bf16_scores),
-                   kernels.stream())
+                   device=dev)
     if bf16_scores:
         masked_flash_attention_packed.bf16_score_launches += 1
     else:

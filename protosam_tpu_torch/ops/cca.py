@@ -71,9 +71,9 @@ def label_components(mask: torch.Tensor) -> torch.Tensor:
     fg = (mask != 0).to(torch.uint8).contiguous()
     scratch = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
     out = torch.empty_like(scratch)
-    kernels.check_cuda("cca_label", fg, scratch, out)
+    dev = kernels.check_cuda("cca_label", fg, scratch, out)
     kernels.launch("ptk_cca_label", fg.data_ptr(), scratch.data_ptr(),
-                   out.data_ptr(), b, h, w, kernels.stream())
+                   out.data_ptr(), b, h, w, device=dev)
     label_components.launches += 1
     return out
 

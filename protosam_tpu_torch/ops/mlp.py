@@ -61,10 +61,10 @@ def dense_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"dense_residual: K = {k} is not a multiple of 8")
     _check_bf16("dense_residual", x, w, b, residual)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    kernels.check_cuda("dense_residual", x, w, b, residual, out)
+    dev = kernels.check_cuda("dense_residual", x, w, b, residual, out)
     kernels.launch("ptk_dense_residual", x.data_ptr(), w.data_ptr(),
                    b.data_ptr(), residual.data_ptr(), out.data_ptr(), m, k,
-                   n, kernels.stream())
+                   n, device=dev)
     dense_residual.launches += 1
     return out
 
@@ -94,13 +94,13 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     extra = () if residual is None else (residual,)
     _check_bf16("mlp_fused", x, w1, b1, w2, b2, *extra)
     out = torch.empty_like(x)
-    kernels.check_cuda("mlp_fused", x, w1, b1, w2, b2, out, *extra)
+    dev = kernels.check_cuda("mlp_fused", x, w1, b1, w2, b2, out, *extra)
     if w1.data_ptr() % 32 or w2.data_ptr() % 32:
         raise ValueError("mlp_fused: weights must be 32-byte aligned")
     kernels.launch("ptk_mlp_fused", x.data_ptr(), w1.data_ptr(),
                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                    None if residual is None else residual.data_ptr(),
-                   out.data_ptr(), m, c, h, kernels.stream())
+                   out.data_ptr(), m, c, h, device=dev)
     mlp_fused.launches += 1
     return out
 

@@ -56,11 +56,11 @@ def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
     if w32.shape != (c,) or b32.shape != (c,):
         raise ValueError(f"layer_norm_rows: weight/bias must be ({c},)")
     out = torch.empty((n, c), dtype=out_dtype, device=x2.device)
-    kernels.check_cuda("layer_norm_rows", x2, w32, b32, out)
+    dev = kernels.check_cuda("layer_norm_rows", x2, w32, b32, out)
     kernels.launch("ptk_layer_norm_rows", x2.data_ptr(), w32.data_ptr(),
                    b32.data_ptr(), out.data_ptr(), n, c, float(eps),
                    kernels.dtype_code(x2), kernels.dtype_code(out),
-                   kernels.stream())
+                   device=dev)
     layer_norm_rows.launches += 1
     return out
 

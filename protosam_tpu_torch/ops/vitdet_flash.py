@@ -88,11 +88,10 @@ def relpos_patch_attention(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"relpos attention: {n_patches} patches exceed "
                          "the launch grid")
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
-    kernels.check_cuda("relpos_patch_attention", qkv, bias, out)
+    dev = kernels.check_cuda("relpos_patch_attention", qkv, bias, out)
     kernels.launch("ptk_relpos_patch_attention", qkv.data_ptr(),
                    bias.data_ptr(), out.data_ptr(), b, hp, wp, num_heads, hd,
-                   patch, float(scale), kernels.dtype_code(qkv),
-                   kernels.stream())
+                   patch, float(scale), kernels.dtype_code(qkv), device=dev)
     relpos_patch_attention.launches += 1
     return out
 

@@ -42,6 +42,10 @@ class ProtoSAMConfig:
     use_points: bool = True
     use_bbox: bool = True
     use_mask: bool = False
+    # reproduce the reference's uint8 cast of the mask prompt, which wraps
+    # its -8 background fill to 248 (predict_w_masks, ProtoSAM.py:479); off
+    # by default, on to replay masks recorded through that cast
+    mask_prompt_uint8_wrap: bool = False
     use_neg_points: bool = False
     use_cca: bool = True
     point_mode: str = BOTH_MODE
@@ -167,15 +171,16 @@ class ProtoSAM:
         mask_inputs = None
         if cfg.use_mask:
             # per-component low-res mask prompts (4x the embedding grid),
-            # fg -> 10 / bg -> -8 (reference predict_w_masks, :468-479,
-            # without its uint8 cast that wraps -8 to 248)
+            # fg -> 10 / bg -> -8 (reference predict_w_masks, :468-479), or
+            # bg -> 248 with mask_prompt_uint8_wrap, as its uint8 cast gives
             side = 4 * (self.sam_model.image_size
                         // self.sam_model.vit_patch_size)
             ids = torch.arange(1, k + 1, dtype=torch.int32,
                                device=pred.device)
             onehot = (stats.labels[:, None] == ids[None, :, None, None])
             low = resize_nearest(onehot.float(), (side, side))
-            mask_inputs = torch.where(low > 0.5, 10.0, -8.0)[:, :, None]
+            bg_fill = 248.0 if cfg.mask_prompt_uint8_wrap else -8.0
+            mask_inputs = torch.where(low > 0.5, 10.0, bg_fill)[:, :, None]
 
         # the SAM input: the reference's uint8 min-max renorm quirk
         # (ProtoSAM.py:651-660), floor to uint8 steps, then the predictor's

@@ -36,7 +36,7 @@ from protosam_tpu_torch.ops import pooling as tpool
 from protosam_tpu_torch.ops import resize as tresize
 from protosam_tpu_torch.ops import vitdet_flash as tvf
 from protosam_tpu_torch.ops.morphology import dilate as tdilate
-from protosam_tpu_torch.tools import bench_attn
+from protosam_tpu_torch.tools import bench_attn, bench_dino_flash
 
 torch.set_num_threads(2)
 
@@ -195,6 +195,23 @@ def test_check_bias_control_fails_the_bf16_bound(side, patch, monkeypatch):
         bench_attn.check_bias(qkv, bias, patch, 2, scale)
 
 
+def test_check_mask_control_fails_the_bf16_bound(monkeypatch):
+    """On the CPU the wrapper is the plain version, so ``check_mask`` holds
+    its bf16 run against its f32 run; the unmasked control must land beyond
+    the bf16 bound, and a kernel that let the keys past n_valid in must
+    fail the check."""
+    kw = dict(scale=64 ** -0.5, num_heads=2, n_valid=100)
+    qkv = torch.from_numpy(bench_dino_flash.mask_check_inputs(
+        1, 130, 2, 64, 100)).to(torch.bfloat16)
+    out = bench_dino_flash.check_mask(qkv, **kw)
+    assert out["control_max_err"] > 10 * out["bound"]
+    monkeypatch.setattr(
+        bench_dino_flash, "masked_flash_attention_packed",
+        lambda q, n_valid, **k: tattn.masked_attention_packed_plain(q, **k))
+    with pytest.raises(AssertionError, match="past n_valid"):
+        bench_dino_flash.check_mask(qkv, **kw)
+
+
 # --------------------------------------------------- resize and pooling
 
 
@@ -303,18 +320,38 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,hd,s,n_valid", [(2, 32, 130, 100),
-                                             (4, 40, 82, None),
-                                             (2, 64, 256, 200)])
+@pytest.mark.parametrize("nh,hd,s,n_valid", [
+    (2, 32, 130, 100), (4, 40, 82, None), (2, 64, 256, 200),
+    (4, 80, 200, 150),    # hd 80: two 64-column panels (DP = 128)
+    (2, 64, 256, 192),    # n_valid a multiple of the 64-key tile
+    (2, 64, 130, 1),      # one valid key
+    (2, 72, 70, 70),      # S < 64: the second warpgroup's rows all past S
+    (16, 64, 2432, 2305)])  # DINOv2-L at 672 px (at B = 1)
 def test_packed_attention_kernel_matches_plain(cuda, dtype, nh, hd, s,
                                                n_valid):
     g = torch.Generator().manual_seed(1)
-    qkv = torch.randn(2, s, 3 * nh * hd, generator=g).to(cuda, dtype)
+    b = 1 if s == 2432 else 2
+    qkv = torch.randn(b, s, 3 * nh * hd, generator=g).to(cuda, dtype)
     kw = dict(scale=hd ** -0.5, num_heads=nh, n_valid=n_valid)
     got = tattn.masked_flash_attention_packed(qkv, **kw).float()
     want = tattn.masked_attention_packed_plain(qkv.float(), **kw)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,hd,n_valid", [
+    (2, 130, 2, 64, 100), (1, 200, 4, 80, 150), (1, 82, 4, 40, 64),
+    (2, 2432, 16, 64, 2305)])  # DINOv2-L at 672 px
+def test_packed_attention_kernel_masks_the_keys_past_n_valid(cuda, b, s, nh,
+                                                             hd, n_valid):
+    """``bench_dino_flash.check_mask``: the keys and values past n_valid 8
+    times larger; K2 within the bf16 bound, the unmasked control beyond it
+    (it raises otherwise)."""
+    qkv = torch.from_numpy(bench_dino_flash.mask_check_inputs(
+        b, s, nh, hd, n_valid)).to(cuda, torch.bfloat16)
+    bench_dino_flash.check_mask(qkv, scale=hd ** -0.5, num_heads=nh,
+                                n_valid=n_valid)
 
 
 @pytest.mark.cuda

@@ -82,8 +82,10 @@ def tiny_models():
 
 @pytest.mark.parametrize("flags", [
     dict(use_cca=True), dict(use_cca=False),
-    dict(use_cca=False, use_mask=True, use_points=False, use_bbox=False)],
-    ids=["cca", "all-components", "mask-prompts"])
+    dict(use_cca=False, use_mask=True, use_points=False, use_bbox=False),
+    dict(use_cca=False, use_mask=True, use_points=False, use_bbox=False,
+         mask_prompt_uint8_wrap=True)],
+    ids=["cca", "all-components", "mask-prompts", "mask-prompts-uint8"])
 def test_pipeline_matches_jax(tiny_models, flags):
     coarse, sam, (jcp, jsp), supp, fg, vol = tiny_models
     pipe = ProtoSAM(coarse, sam, ProtoSAMConfig(
