@@ -1,6 +1,6 @@
 """The SAM encoder's fused projection and MLP: kernels K6 ``dense_residual``
-and K7 ``mlp_fused`` (``csrc/mlp.cu``), the counterparts of
-``protosam_tpu/ops/mlp_pallas.py``.
+(``csrc/mlp.cu``) and K7 ``mlp_fused`` (``csrc/mlp_fused.cu``), the
+counterparts of ``protosam_tpu/ops/mlp_pallas.py``.
 
 Weights come in the ``nn.Linear`` layout ``(out, in)`` as the modules store
 them, so no call transposes or casts a weight.  The plain versions compute
@@ -76,9 +76,12 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
               residual: torch.Tensor | None = None) -> torch.Tensor:
     """``gelu_tanh(x w1ᵀ + b1) w2ᵀ + b2 (+ residual)`` for x (M, C), w1
-    (H, C), w2 (C, H): kernel K7 on CUDA bf16 tensors (the (M, H) hidden
-    activation never reaches device memory), the plain version on CPU
-    tensors."""
+    (H, C), w2 (C, H): kernel K7 on CUDA bf16 tensors, the plain version on
+    CPU tensors.  K7 runs in clusters of eight blocks that share each hidden
+    chunk through distributed shared memory, so the (M, H) hidden
+    activation never reaches device memory and nothing is allocated for it;
+    x, w1 and w2 are read by TMA, which needs them contiguous and 16-byte
+    aligned.  A launch the card cannot take raises."""
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2, residual)
     m, c = x.shape
@@ -95,8 +98,6 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _check_bf16("mlp_fused", x, w1, b1, w2, b2, *extra)
     out = torch.empty_like(x)
     dev = kernels.check_cuda("mlp_fused", x, w1, b1, w2, b2, out, *extra)
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("mlp_fused: weights must be 32-byte aligned")
     kernels.launch("ptk_mlp_fused", x.data_ptr(), w1.data_ptr(),
                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                    None if residual is None else residual.data_ptr(),

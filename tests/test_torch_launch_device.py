@@ -85,10 +85,13 @@ WRAPPERS = {"K1": (_k1, "ptk_layer_norm_rows"),
             "K7": (_k7, "ptk_mlp_fused")}
 
 
-@pytest.mark.parametrize("kernel", list(WRAPPERS))
-def test_wrapper_launches_on_its_tensors_device(kernel, monkeypatch):
-    run, entry = WRAPPERS[kernel]
-    entered, calls, streams = [], [], []
+@pytest.fixture
+def recorder(monkeypatch):
+    """The kernel library, ``torch.cuda.device``, ``current_stream`` and
+    ``torch.empty`` replaced by recorders.  Returns (calls, streams, args):
+    each C entry call as (name, devices entered, stream), each stream
+    asked for, and each call's arguments."""
+    entered, calls, streams, args = [], [], [], []
 
     @contextlib.contextmanager
     def device(dev):
@@ -98,8 +101,9 @@ def test_wrapper_launches_on_its_tensors_device(kernel, monkeypatch):
 
     class Lib:
         def __getattr__(self, name):
-            def call(*args):
-                calls.append((name, list(entered), args[-1]))
+            def call(*a):
+                calls.append((name, list(entered), a[-1]))
+                args.append(a)
                 return 0
             return call
 
@@ -118,9 +122,71 @@ def test_wrapper_launches_on_its_tensors_device(kernel, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setattr(torch, "empty", empty)
+    return calls, streams, args
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+def test_wrapper_launches_on_its_tensors_device(kernel, recorder):
+    run, entry = WRAPPERS[kernel]
+    calls, streams, _ = recorder
     run(lambda t: t.as_subclass(OnCard))
     assert calls == [(entry, [CARD], STREAM)]
     assert streams == [CARD]
+
+
+def _k7_args(residual=True):
+    r = _inputs(torch.bfloat16)
+    return dict(x=r(4, 16), w1=r(32, 16), b1=r(32), w2=r(16, 32), b2=r(16),
+                residual=r(4, 16) if residual else None)
+
+
+def _on_card(args):
+    return {k: None if v is None else v.as_subclass(OnCard)
+            for k, v in args.items()}
+
+
+def _misaligned(t):
+    """``t``'s values one element past a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def _strided(t):
+    """``t``'s values every other column of a wider tensor."""
+    wide = torch.zeros(t.shape[0], 2 * t.shape[1], dtype=t.dtype)
+    wide[:, ::2] = t
+    return wide[:, ::2]
+
+
+@pytest.mark.parametrize("defect", ["non-contiguous", "misaligned"])
+@pytest.mark.parametrize("name", ["x", "w1", "w2"])
+def test_mlp_fused_refuses_what_tma_cannot_read(name, defect, recorder):
+    """K7 reads x, W1 and W2 by TMA: the wrapper raises on a strided or a
+    misaligned one before anything launches."""
+    calls, _, _ = recorder
+    args = _k7_args()
+    bad = {"non-contiguous": _strided, "misaligned": _misaligned}[defect]
+    args[name] = bad(args[name])
+    assert torch.equal(args[name].float(), _k7_args()[name].float())
+    with pytest.raises(ValueError,
+                       match="not contiguous|not 16-byte aligned"):
+        mlp.mlp_fused(**_on_card(args))
+    assert calls == []
+
+
+def test_mlp_fused_without_residual_launches_on_its_tensors_device(
+        recorder):
+    calls, streams, args = recorder
+    a = _on_card(_k7_args(residual=False))
+    out = mlp.mlp_fused(**a)
+    assert calls == [("ptk_mlp_fused", [CARD], STREAM)]
+    assert streams == [CARD]
+    x, w1, b1, w2, b2, res, dst, m, c, h = args[0][:-1]
+    assert res is None
+    assert (x, w1, w2, dst) == (a["x"].data_ptr(), a["w1"].data_ptr(),
+                                a["w2"].data_ptr(), out.data_ptr())
+    assert (m, c, h) == (4, 16, 32)
 
 
 @pytest.fixture

@@ -50,6 +50,7 @@ from protosam_tpu_torch.ops import alp as talp
 from protosam_tpu_torch.ops import mlp as tmlp
 from protosam_tpu_torch.ops.resize import resize_bilinear
 from protosam_tpu_torch.pipeline.protosam import ProtoSAM, ProtoSAMConfig
+from protosam_tpu_torch.tools import bench_mlp_kernel
 from protosam_tpu_torch.utils import convert
 from protosam_tpu_torch.utils.config import Config, load_config
 from protosam_tpu_torch.utils.synthetic import synthetic_state_dict
@@ -151,6 +152,29 @@ def test_dense_residual_plain_matches_jax_kernel(m, k, n, kind):
     got = tmlp.dense_residual(*(t(a).to(tdt) for a in (x, w.T, b, res)))
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **_MLP_TOL[kind])
+
+
+def test_check_exchange_control_fails_the_bf16_bound(monkeypatch):
+    """On the CPU the wrapper is the plain version, so ``check_exchange``
+    holds its bf16 run against its f32 run; the control with two peers'
+    chunks swapped must land beyond the bf16 bound, and a kernel that read
+    one peer's chunk for the other's must fail the check."""
+    x, w1, b1, w2, b2, res = (t(a).to(torch.bfloat16) for a in _mlp_arrays(
+        np.random.default_rng(8), 96, 128, 1024))
+    w1, w2 = w1.T.contiguous(), w2.T.contiguous()  # nn.Linear layout
+    out = bench_mlp_kernel.check_exchange(x, w1, b1, w2, b2, res)
+    assert out["control_max_err"] > 10 * out["bound"]
+    assert out["max_abs_err"] <= out["bound"]
+    w1s, w2s = bench_mlp_kernel.exchange_scaled(w1, w2)
+    assert torch.equal(w1s[64:128].float(), 2 * w1[64:128].float())
+    assert torch.equal(w2s[:, 192:256].float(), 8 * w2[:, 192:256].float())
+    assert torch.equal(w2s[:, 576:640].float(), 2 * w2[:, 576:640].float())
+    monkeypatch.setattr(
+        bench_mlp_kernel, "mlp_fused",
+        lambda x, w1, b1, w2, b2, r: tmlp.mlp_fused_plain(
+            x, w1, b1, bench_mlp_kernel.swap_peers(w2), b2, r))
+    with pytest.raises(AssertionError, match="mixes up"):
+        bench_mlp_kernel.check_exchange(x, w1, b1, w2, b2, res)
 
 
 # ------------------------------------------------------ K5 plain version
@@ -455,8 +479,12 @@ def test_dense_residual_kernel_matches_plain(cuda, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_residual", [True, False])
-@pytest.mark.parametrize("m,c,h", [(256, 128, 512), (100, 160, 336),
-                                   (2000, 1280, 5120)])
+@pytest.mark.parametrize("m,c,h", [
+    (256, 128, 512), (100, 160, 336), (2000, 1280, 5120),
+    (300, 768, 3072), (300, 1024, 4096),  # ViT-B and ViT-L widths
+    (100, 144, 336),    # a ragged column slice: 36 -> 40 a block, C masked
+    (8264, 1280, 5120),  # M ragged to the 128-row cluster tile
+])
 def test_mlp_fused_kernel_matches_plain(cuda, m, c, h, with_residual):
     g = torch.Generator().manual_seed(2)
     bf = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(
@@ -469,6 +497,20 @@ def test_mlp_fused_kernel_matches_plain(cuda, m, c, h, with_residual):
     assert got.dtype == torch.bfloat16
     assert_bf16_close(got.float().cpu(), want.cpu())
     assert torch.equal(got, tmlp.mlp_fused(x, w1, b1, w2, b2, res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,h", [(300, 1280, 5120), (200, 144, 512)])
+def test_mlp_fused_kernel_reads_each_peer_chunk(cuda, m, c, h):
+    """``check_exchange`` on the card: each peer block's hidden chunk
+    scaled by its own factor, a swapped-chunk control that fails."""
+    g = torch.Generator().manual_seed(5)
+    bf = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(
+        cuda, torch.bfloat16)
+    out = bench_mlp_kernel.check_exchange(
+        bf(m, c), bf(h, c, sc=0.03), bf(h, sc=0.1), bf(c, h, sc=0.015),
+        bf(c, sc=0.1), bf(m, c))
+    assert out["control_max_err"] > out["bound"] >= out["max_abs_err"]
 
 
 @pytest.mark.cuda
