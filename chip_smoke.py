@@ -127,6 +127,16 @@ def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, cost,
                         bound_by=bound_by, library_ms=library_ms, **meta))
 
 
+def _rerun_identical(name, fn, entries) -> None:
+    """``fn`` run twice must give the same bits: the kernel has no atomics
+    and no split sums, so nothing may depend on timing."""
+    same = torch.equal(fn(), fn())
+    entries[-1]["rerun_identical"] = same
+    log(f"phase 2 kernel {name}: rerun bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{name}: a rerun changed the output")
+
+
 def _cca_masks(h: int, w: int, seed: int) -> torch.Tensor:
     """Random blobs, a snake, white noise, an empty and a full mask."""
     rng = np.random.default_rng(seed)
@@ -327,6 +337,8 @@ def phase_kernels() -> list[dict]:
            lambda: dense_residual_plain(x.float(), wp, bp, res),
            "bf16", entries, cost, kernel="dense_residual",
            unfused_ms=device_ms(lambda: res + F.linear(x, wp, bp)).median_ms)
+    _rerun_identical("dense_residual", lambda: dense_residual(x, wp, bp, res),
+                     entries)
     cost = MAIN_PATH_SHAPES["K7 ViT-H MLP"]
     hid = cost[1]["h"]
     w1, b1 = bf(hid, c, sc=0.03), bf(hid, sc=0.1)
@@ -362,6 +374,8 @@ def phase_kernels() -> list[dict]:
            "bf16", entries, tool_shapes()["row 13 fc2"], kernel="fc2",
            unfused_ms=device_ms(
                lambda: torch.addmm(bfc, xf, wf.T) + rf).median_ms)
+    _rerun_identical("dense_residual fc2",
+                     lambda: dense_residual(xf, wf, bfc, rf), entries)
     return entries
 
 
@@ -534,7 +548,7 @@ _REPLACES = {
                   "protosam_tpu/ops/cca_pallas.py:171"),
     "alp_match": ("protosam_tpu_torch/csrc/alp.cu",
                   "protosam_tpu/ops/alp_pallas.py:30"),
-    "dense_residual": ("protosam_tpu_torch/csrc/mlp.cu",
+    "dense_residual": ("protosam_tpu_torch/csrc/dense_residual.cu",
                        "protosam_tpu/ops/mlp_pallas.py:88"),
     "mlp_fused": ("protosam_tpu_torch/csrc/mlp_fused.cu",
                   "protosam_tpu/ops/mlp_pallas.py:125"),
@@ -610,7 +624,8 @@ def kernel_report(checks: list[dict], launches: dict,
     fc2_check = next(c for c in checks if c["kernel"] == "fc2")
     fc2 = tools["fc2"]
     out.append({"name": "dense_residual fc2 (tools/bench_fc2)",
-                "route": "cuda", "source": "protosam_tpu_torch/csrc/mlp.cu",
+                "route": "cuda",
+                "source": "protosam_tpu_torch/csrc/dense_residual.cu",
                 "replaces": "tools/bench_fc2.py:90",
                 "launches": tools["fc2_launches"],
                 "max_abs_err": max(fc2_check["max_abs_err"],

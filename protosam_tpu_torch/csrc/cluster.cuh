@@ -1,10 +1,14 @@
 // Inline PTX helpers for Hopper's asynchronous pipelines: mbarriers, TMA
 // tile loads (with multicast to a cluster), thread-block clusters and
-// their distributed shared memory.  Shared-memory addresses are 32-bit
-// (smem_u32 in mma.cuh).
+// their distributed shared memory; and, on the host, the TMA tensor maps.
+// Shared-memory addresses are 32-bit (smem_u32 in mma.cuh).
 #pragma once
 
 #include <cstdint>
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace ptk {
 
@@ -54,6 +58,17 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta,
       "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
       "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n}\n" ::"r"(
           mapa(bar, cta)),
+      "r"((int)on)
+      : "memory");
+}
+
+// this thread's arrival on a barrier of its own CTA (release at CTA
+// scope); a no-op where `on` is false (a predicate, not a branch, so it may
+// sit beside wgmma in flight)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool on = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
       "r"((int)on)
       : "memory");
 }
@@ -172,6 +187,53 @@ __device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
 // barrier `id` (1-15) over `threads` threads of this CTA
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------ tensor maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to
+// libcuda); null where it is missing
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 (rows, cols) matrix read in boxes of box_rows x
+// box_cols (at most 256 each), 128B-swizzled (box_cols at most 64: one
+// 128-byte row) or, with CU_TENSOR_MAP_SWIZZLE_NONE, row after row; reads
+// past either edge fill zeros
+inline bool tensor_map(
+    CUtensorMap* map, EncodeTiled enc, const void* ptr, uint64_t rows,
+    uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace ptk

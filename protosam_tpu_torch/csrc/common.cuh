@@ -5,6 +5,8 @@
 // int.  Element types are passed as a code: 0 = float32, 1 = bfloat16.
 #pragma once
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -28,6 +30,23 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, like torch's cast
+}
+
+constexpr int kCachedDevices = 64;
+
+// the current device's SM count, queried once a device; 0 on an error
+inline int sm_count() {
+  static std::atomic<int> cache[kCachedDevices];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const bool cached = dev < kCachedDevices;
+  if (cached && (n = cache[dev].load(std::memory_order_relaxed)) > 0)
+    return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (cached) cache[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 }  // namespace ptk

@@ -338,47 +338,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster_sync();  // no CTA leaves while a peer still reads it
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no link to
-// libcuda); null where it is missing
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major bf16 (rows, cols) matrix read in boxes of box_rows x 64
-// columns, 128B-swizzled; reads past either edge fill zeros
-bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr,
-                uint64_t rows, uint64_t cols, uint32_t box_rows) {
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {kK, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch(const CUtensorMap& xm, const CUtensorMap& w1m,
            const CUtensorMap& w2m, const Args& a, cudaStream_t st) {
   auto kern = mlp_fused_kernel;
@@ -413,9 +372,9 @@ extern "C" int ptk_mlp_fused(const void* x, const void* w1, const void* b1,
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const int ns = ((c + kCluster - 1) / kCluster + 7) / 8 * 8;
   CUtensorMap xm, w1m, w2m;
-  if (!tensor_map(&xm, enc, x, m, c, kRows / kCluster) ||
-      !tensor_map(&w1m, enc, w1, h, c, kChunk) ||
-      !tensor_map(&w2m, enc, w2, c, h, kCols))
+  if (!tensor_map(&xm, enc, x, m, c, kRows / kCluster, kK) ||
+      !tensor_map(&w1m, enc, w1, h, c, kChunk, kK) ||
+      !tensor_map(&w2m, enc, w2, c, h, kCols, kK))
     return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
                static_cast<const bf16*>(res), static_cast<bf16*>(out), m, c,

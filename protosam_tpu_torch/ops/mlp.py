@@ -1,5 +1,5 @@
 """The SAM encoder's fused projection and MLP: kernels K6 ``dense_residual``
-(``csrc/mlp.cu``) and K7 ``mlp_fused`` (``csrc/mlp_fused.cu``), the
+(``csrc/dense_residual.cu``) and K7 ``mlp_fused`` (``csrc/mlp_fused.cu``), the
 counterparts of ``protosam_tpu/ops/mlp_pallas.py``.
 
 Weights come in the ``nn.Linear`` layout ``(out, in)`` as the modules store

@@ -60,7 +60,10 @@ def t(a):
 # ---------------------------------------------------------------- norms
 
 
-@pytest.mark.parametrize("shape", [(7, 48), (2, 5, 64), (16, 160)])
+@pytest.mark.parametrize("shape", [
+    (7, 48), (2, 5, 64), (16, 160),
+    (16, 768), (8, 1024), (24, 1280),  # SAM-B, DINOv2-L and SAM-H widths
+])
 def test_layer_norm_matches_jax_kernel(shape):
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(shape) * 3 + 1).astype(np.float32)
@@ -307,15 +310,31 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_layer_norm_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("c", [
+    768, 1024, 1280,  # the vector kernel: 3-5 (bf16), 6-10 (f32) a lane
+    160,              # one vector a lane, lanes past C / 8 (C / 4) idle
+    100,              # bf16 C % 8 != 0: the scalar kernel (f32: vectors)
+    2600,             # wider than 10 vectors a lane: the scalar kernel
+])
+# 300: not a multiple of the 8 rows a block; 4864, DINOv2-L's rows at B = 2,
+# where f32 at C = 1024 takes the scalar kernel by its waves on an H100
+@pytest.mark.parametrize("rows", [300, 4864])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, c, out_dtype, rows):
+    """The f32 plain version on the same input, to 1e-4 and, for a bf16
+    output, half a bf16 ulp more."""
     g = torch.Generator().manual_seed(0)
-    x = (torch.randn(300, 160, generator=g) * 3 + 1).to(cuda, dtype)
-    w = (1 + 0.1 * torch.randn(160, generator=g)).to(cuda)
-    b = (0.1 * torch.randn(160, generator=g)).to(cuda)
-    got = tnorm.layer_norm_rows(x, w, b, 1e-6, torch.float32)
+    x = (torch.randn(rows, c, generator=g) * 3 + 1).to(cuda, dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    b = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    before = tnorm.layer_norm_rows.launches
+    got = tnorm.layer_norm_rows(x, w, b, 1e-6, out_dtype)
+    assert tnorm.layer_norm_rows.launches == before + 1
+    assert got.dtype == out_dtype
     want = tnorm.layer_norm_rows_plain(x, w, b, 1e-6, torch.float32)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    rtol = 1e-4 if out_dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,8 @@ import functools
 import importlib
 import importlib.util
 import pathlib
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -310,6 +312,17 @@ def test_tool_entry_raises_without_cuda(tool, no_cuda):
     mod = importlib.import_module(f"protosam_tpu_torch.tools.{tool}")
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main([])
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda):
+    """Without a card ``chip_smoke.py`` exits non-zero and prints no result
+    line."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300, cwd=root)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "CUDA is not available" in out.stderr
 
 
 def test_stage_timer_needs_a_card_to_sync(no_cuda):

@@ -139,7 +139,10 @@ def test_mlp_fused_plain_matches_jax_kernel(m, c, h, with_residual, kind):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("m,k,n", [(256, 128, 512), (96, 256, 384)])
+@pytest.mark.parametrize("m,k,n", [
+    (256, 128, 512), (96, 256, 384),
+    (100, 136, 72),  # M, K and N ragged to K6's 128 x 160 x 64 tiles
+])
 def test_dense_residual_plain_matches_jax_kernel(m, k, n, kind):
     tdt, jdt = _DTYPES[kind]
     rng = np.random.default_rng(1)
@@ -463,8 +466,16 @@ def test_alp_kernel_matches_plain(cuda, n, c, h, w, p, all_invalid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(256, 128, 512), (100, 136, 72),
-                                   (8192, 1280, 1280)])
+@pytest.mark.parametrize("m,k,n", [
+    (256, 128, 512),
+    (100, 136, 72),      # M, N and K (136 = 2 x 64 + 8) ragged to the tiles
+    (8192, 1280, 1280),  # the ViT-H projection: 512 tiles on the SMs
+    (100, 1280, 1280),   # fewer tiles (8) than SMs
+    (8264, 1280, 1280),  # M ragged; 520 tiles, an uneven share a block
+    (300, 768, 768),     # ViT-B: N ragged to the 160-column tile
+    (100, 136, 75),      # odd N: the epilogue's one-at-a-time stores
+    (39200, 5120, 1280),  # the fc2 geometry of tools/bench_fc2.py
+])
 def test_dense_residual_kernel_matches_plain(cuda, m, k, n):
     g = torch.Generator().manual_seed(1)
     bf = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(
