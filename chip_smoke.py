@@ -18,7 +18,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    swapped-bias control must fail (``tools.bench_attn.check_bias``); K7
    with each peer block's hidden chunk scaled by its own factor,
    where a control with two peers' chunks swapped must fail
-   (``tools.bench_mlp_kernel.check_exchange``);
+   (``tools.bench_mlp_kernel.check_exchange``); K3 also on masks whose
+   components cross its tiles only at their corners or along a diagonal
+   (untimed); K3, K5 and K6 run twice must give the same bits;
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
    once as built by default and once with the fused ALP match (K5);
@@ -128,8 +130,10 @@ def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, cost,
 
 
 def _rerun_identical(name, fn, entries) -> None:
-    """``fn`` run twice must give the same bits: the kernel has no atomics
-    and no split sums, so nothing may depend on timing."""
+    """``fn`` run twice must give the same bits: nothing may depend on
+    timing.  K6 has no atomics and no split sums; K3's atomics may land in
+    any order, but every root is its component's minimum index; K5 merges
+    its prototype splits in a fixed order, with no atomics."""
     same = torch.equal(fn(), fn())
     entries[-1]["rerun_identical"] = same
     log(f"phase 2 kernel {name}: rerun bit-identical: {same}")
@@ -155,6 +159,19 @@ def _cca_masks(h: int, w: int, seed: int) -> torch.Tensor:
     masks = np.stack([blobs, snake, noise, np.zeros((h, w), bool),
                       np.ones((h, w), bool)])
     return torch.from_numpy(masks.astype(np.uint8))
+
+
+def _cca_tile_classes(side: int) -> torch.Tensor:
+    """Checkerboards of periods 16, 32 and 64 whose squares touch only at
+    their corners (NW-SE and NE-SW), and a 1-pixel diagonal line each
+    way: components that cross K3's 32 x 32 tiles only diagonally."""
+    yy, xx = np.mgrid[:side, :side]
+    masks = []
+    for period in (16, 32, 64):
+        a, b = (yy % period) < period // 2, (xx % period) < period // 2
+        masks += [a == b, a != b]
+    masks += [yy == xx, yy == side - 1 - xx]
+    return torch.from_numpy(np.stack(masks).astype(np.uint8))
 
 
 def phase_kernels() -> list[dict]:
@@ -307,6 +324,19 @@ def phase_kernels() -> list[dict]:
            lambda: label_components_plain(masks),
            lambda: label_components_plain(masks),
            "exact", entries, cost, kernel="cca_label")
+    _rerun_identical("cca_label", lambda: label_components(masks), entries)
+    # untimed: the tile-corner and diagonal classes
+    corners = _cca_tile_classes(cost[1]["h"]).to(dev)
+    same = torch.equal(label_components(corners),
+                       label_components_plain(corners))
+    entries[-1]["tile_class_equal"] = same
+    log(f"phase 2 kernel cca_label tile corners and diagonals "
+        f"({'x'.join(map(str, corners.shape))}): equal to the plain "
+        f"version: {same}")
+    if not same:
+        raise AssertionError("cca_label: tile-corner labels differ from the "
+                             "plain version's")
+    del masks, corners
 
     # K5: the flagship ALP match, N = 4 slices of 48x48 DINOv2-L features;
     # P = 576 (BG gridconv) and 577 (FG gridconv+) at val_wsize 2, about a
@@ -323,6 +353,8 @@ def phase_kernels() -> list[dict]:
                lambda: alp_match_fused_plain(q, protos, valid),
                lambda: alp_match_fused_plain(q, protos, valid),
                "f32", entries, cost, kernel="alp_match")
+        _rerun_identical(f"alp_match P={p}",
+                         lambda: alp_match_fused(q, protos, valid), entries)
 
     # K6 / K7: the ViT-H projection (1280 -> 1280) and MLP (1280 -> 5120 ->
     # 1280) with their residuals, bf16; `unfused_ms` is the modules' own
@@ -555,6 +587,16 @@ _REPLACES = {
 }
 
 
+# the design of the kernels whose entries name it
+_DESIGN = {
+    "cca_label": "tile-local union-find in shared memory (32 x 32 tiles), "
+                 "a global union on tile borders only, a resolve pass",
+    "alp_match": "prototype range split across blocks (128 a split, 64 "
+                 "pixels a block, 8 x 8 f32 register tiles, cp.async "
+                 "ring), softmax partials merged by a combine pass",
+}
+
+
 # why a kernel has no one-call PyTorch yardstick (``library_ms`` null):
 # "composite" = the library route takes two calls (see ``unfused_ms``),
 # "none" = PyTorch has no op for the function
@@ -595,6 +637,12 @@ def kernel_report(checks: list[dict], launches: dict,
                  "flagship_launches": flagship_launches.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
+        if name in _DESIGN:
+            entry.update(design=_DESIGN[name],
+                         rerun_identical=all(r["rerun_identical"]
+                                             for r in rows))
+        if name == "cca_label":
+            entry.update(tile_class_equal=main["tile_class_equal"])
         if name == "packed_masked_attention":
             entry.update(f32_source="protosam_tpu_torch/csrc/attention.cu",
                          mask_check=main["mask_check"])

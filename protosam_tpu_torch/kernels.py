@@ -46,7 +46,7 @@ _SIGNATURES = {
     "ptk_relpos_patch_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _I, _P),
     "ptk_cca_label": (_P, _P, _P, _I, _I, _I, _P),
-    "ptk_alp_match": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ptk_alp_match": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ptk_dense_residual": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     "ptk_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
 }

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from protosam_tpu_torch import kernels
 from protosam_tpu_torch.ops.norm import clamped_norm, safe_l2_normalize
@@ -24,6 +25,9 @@ from protosam_tpu_torch.ops.pooling import avg_pool2d
 
 NEG_INF = -1e10
 SIM_SCALE = 20.0
+# prototypes per block of K5 (``kTP`` in csrc/alp.cu): the wrapper pads the
+# prototype count to a multiple of it
+ALP_SPLIT = 128
 
 
 class Prototypes(NamedTuple):
@@ -78,7 +82,11 @@ def alp_match_fused(qry_fts: torch.Tensor, protos: torch.Tensor,
     """Fused ALP matching: qry_fts (N, C, H, W), protos (P, C) raw, valid
     (P,) bool -> (N, 1, H, W) f32.  Kernel K5 on a CUDA tensor, the plain
     version on a CPU tensor.  The prototypes are normalised here, outside
-    the kernel, as the JAX wrapper does (``alp_pallas.py:69``)."""
+    the kernel, as the JAX wrapper does (``alp_pallas.py:69``), and handed
+    over transposed, (C, P) zero-padded to whole ``ALP_SPLIT``-prototype
+    splits, so both of the kernel's operands are contiguous along its tile
+    rows; each split writes per-pixel softmax partials to a scratch that
+    the kernel's combine pass merges."""
     if qry_fts.device.type == "cpu":
         return alp_match_fused_plain(qry_fts, protos, valid)
     n, c, h, w = qry_fts.shape
@@ -86,13 +94,19 @@ def alp_match_fused(qry_fts: torch.Tensor, protos: torch.Tensor,
     if protos.shape != (p, c) or valid.shape != (p,):
         raise ValueError(f"alp_match_fused: protos {tuple(protos.shape)} / "
                          f"valid {tuple(valid.shape)} do not fit C = {c}")
+    splits = max(1, -(-p // ALP_SPLIT))
+    pad = splits * ALP_SPLIT - p
     q = qry_fts.float().contiguous()
-    pn = safe_l2_normalize(protos.float(), dim=1).contiguous()
-    v = valid.to(torch.uint8).contiguous()
+    pt = F.pad(safe_l2_normalize(protos.float(), dim=1).t(),
+               (0, pad)).contiguous()
+    v = F.pad(valid.to(torch.uint8), (0, pad)).contiguous()
+    part = torch.empty((n, splits, 3, h * w), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty((n, 1, h, w), dtype=torch.float32, device=q.device)
-    dev = kernels.check_cuda("alp_match_fused", q, pn, v, out)
-    kernels.launch("ptk_alp_match", q.data_ptr(), pn.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), n, c, h * w, p, device=dev)
+    dev = kernels.check_cuda("alp_match_fused", q, pt, v, part, out)
+    kernels.launch("ptk_alp_match", q.data_ptr(), pt.data_ptr(),
+                   v.data_ptr(), part.data_ptr(), out.data_ptr(), n, c,
+                   h * w, splits * ALP_SPLIT, device=dev)
     alp_match_fused.launches += 1
     return out
 

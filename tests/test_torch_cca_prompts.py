@@ -1,7 +1,8 @@
 """Parity of the port's CCA, component stats and SAM prompt extraction with
 the JAX package: labels, stats and prompt coordinates must be exactly
-equal.  The ``cuda`` test holds kernel K3 to its plain version bit for
-bit."""
+equal.  The ``cuda`` tests hold kernel K3 to its plain version bit for
+bit, and a rerun to the first run: K3 is a tiled union-find whose tile
+borders, tile corners and long chains the mask classes below aim at."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ try:  # the JAX reference; the GPU machine has no JAX and runs only `-m cuda`
 
     from protosam_tpu.ops import cca as jcca
     from protosam_tpu.ops import prompts as jprompts
+    from protosam_tpu.ops.cca_pallas import label_components_pallas
     from protosam_tpu.pipeline.protosam import (
         _keep_best_component as j_keep_best)
 except ImportError:
@@ -60,6 +62,32 @@ def mask_batch(h=64, w=64, seed=0):
                      np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8)])
 
 
+def tile_corners(h, w, period, anti):
+    """A checkerboard of period ``period``: squares that touch only at
+    their corners, diagonally, NW-SE (``anti`` False) or NE-SW."""
+    yy, xx = np.mgrid[:h, :w]
+    a, b = (yy % period) < period // 2, (xx % period) < period // 2
+    return ((a != b) if anti else (a == b)).astype(np.uint8)
+
+
+def diagonal_line(h, w, anti):
+    """A 1-pixel diagonal line from one corner across the whole image."""
+    m = np.zeros((h, w), np.uint8)
+    k = np.arange(min(h, w))
+    m[k, w - 1 - k if anti else k] = 1
+    return m
+
+
+def vertical_snake(h, w):
+    """One 1-pixel snake: every other column full height, joined
+    alternately along the top and the bottom row."""
+    m = np.zeros((h, w), np.uint8)
+    m[:, ::2] = 1
+    for j, x in enumerate(range(1, w - 1, 2)):
+        m[0 if j % 2 else h - 1, x] = 1
+    return m
+
+
 def jax_stats(mask, max_ccs):
     return [jcca.connected_components(jnp.asarray(m, jnp.float32), max_ccs)
             for m in mask]
@@ -72,6 +100,30 @@ def test_root_labels_match_jax(seed):
     for i, m in enumerate(masks):
         want = np.asarray(jcca._label_components_xla(jnp.asarray(m)))
         np.testing.assert_array_equal(got[i], want)
+
+
+CORNER_CASES = [("corners", p, anti) for p in (16, 32, 64)
+                for anti in (False, True)] + [("diagonal", 0, False),
+                                              ("diagonal", 0, True)]
+
+
+def tile_class(h, w, kind, period, anti):
+    if kind == "corners":
+        return tile_corners(h, w, period, anti)
+    return diagonal_line(h, w, anti)
+
+
+@pytest.mark.parametrize("size", [(64, 64), (48, 80)])
+@pytest.mark.parametrize("kind,period,anti", CORNER_CASES)
+def test_plain_labels_match_jax_kernel_on_tile_classes(size, kind, period,
+                                                       anti):
+    """K3's plain version against the JAX Pallas kernel (interpret mode) on
+    the classes that cross K3's tile borders only diagonally."""
+    mask = tile_class(*size, kind, period, anti)
+    got = tcca.label_components(torch.from_numpy(mask[None])).numpy()[0]
+    want = np.asarray(label_components_pallas(jnp.asarray(mask),
+                                              interpret=True))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("max_ccs", [4, 8])
@@ -159,3 +211,44 @@ def test_cca_kernel_matches_plain_exactly(cuda, size):
     got = tcca.label_components(masks)
     torch.cuda.synchronize()
     assert torch.equal(got, tcca.label_components_plain(masks))
+
+
+def _kernel_equals_plain_twice(masks):
+    got = tcca.label_components(masks)
+    again = tcca.label_components(masks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tcca.label_components_plain(masks))
+    # roots are component minima, so the order of the atomics cannot show
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(256, 256), (1024, 1024)])
+@pytest.mark.parametrize("kind,period,anti", CORNER_CASES)
+def test_cca_kernel_on_tile_corners_and_diagonals(cuda, size, kind, period,
+                                                  anti):
+    mask = tile_class(*size, kind, period, anti)
+    _kernel_equals_plain_twice(torch.from_numpy(mask[None]).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["snake", "1000x1000", "33x17", "1x4096",
+                                  "4096x1", "full", "empty", "b8"])
+def test_cca_kernel_on_chains_sizes_and_batches(cuda, case):
+    rng = np.random.default_rng(11)
+    if case == "snake":  # one component crossing every tile row
+        masks = vertical_snake(1024, 1024)[None]
+    elif case in ("full", "empty"):
+        masks = np.full((2, 1024, 1024), case == "full", np.uint8)
+    elif case == "b8":
+        masks = np.concatenate([mask_batch(1024, 1024, seed=8),
+                                vertical_snake(1024, 1024)[None],
+                                tile_corners(1024, 1024, 32, True)[None],
+                                diagonal_line(1024, 1024, False)[None]])
+    else:
+        # ragged tiles: noise at two densities and a full mask
+        h, w = map(int, case.split("x"))
+        masks = np.stack([(rng.random((h, w)) > 0.5).astype(np.uint8),
+                          (rng.random((h, w)) > 0.2).astype(np.uint8),
+                          np.ones((h, w), np.uint8)])
+    _kernel_equals_plain_twice(torch.from_numpy(masks).to(cuda))

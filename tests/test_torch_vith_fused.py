@@ -187,6 +187,8 @@ def test_check_exchange_control_fails_the_bf16_bound(monkeypatch):
     (2, 40, 13, 11, 75, False),     # rows 143, P 75: neither a tile multiple
     (1, 64, 17, 16, 129, False),    # P just past 128
     (1, 32, 8, 9, 16, True),        # every prototype invalid: exactly 0
+    (1, 48, 7, 6, 1, False),        # one prototype
+    (1, 48, 9, 7, 300, False),      # K5 splits the range in three
 ])
 def test_alp_match_fused_plain_matches_jax_kernel(n, c, h, w, p,
                                                   all_invalid):
@@ -447,22 +449,36 @@ def test_config_matches_jax_config():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,h,w,p,all_invalid", [
-    (2, 40, 13, 11, 75, False), (1, 1024, 48, 48, 577, False),
-    (3, 64, 7, 5, 130, False), (1, 32, 8, 9, 16, True)])
-def test_alp_kernel_matches_plain(cuda, n, c, h, w, p, all_invalid):
+@pytest.mark.parametrize("n,c,h,w,p,invalid", [
+    (2, 40, 13, 11, 75, None), (1, 1024, 48, 48, 577, None),
+    (3, 64, 7, 5, 130, None), (1, 32, 8, 9, 16, "all"),
+    # K5 splits the prototypes in blocks of ALP_SPLIT = 128 and combines
+    # the splits' softmax partials: one prototype, one split just short,
+    # exact and just past, several with the last one ragged
+    (2, 64, 9, 9, 1, None), (2, 64, 9, 9, 127, None),
+    (2, 64, 9, 9, 128, None), (2, 64, 9, 9, 129, None),
+    (2, 96, 16, 16, 1153, None), (4, 1024, 48, 48, 576, None),
+    # the whole second split invalid, the others not; all invalid
+    (2, 96, 16, 16, 300, "split 1"), (2, 96, 16, 16, 300, "all")])
+def test_alp_kernel_matches_plain(cuda, n, c, h, w, p, invalid):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(n, c, h, w, generator=g).to(cuda)
     protos = torch.randn(p, c, generator=g).to(cuda)
-    valid = (torch.zeros(p, dtype=torch.bool) if all_invalid
-             else torch.rand(p, generator=g) > 0.3).to(cuda)
+    valid = torch.rand(p, generator=g) > 0.3
+    if invalid == "all":
+        valid[:] = False
+    elif invalid == "split 1":
+        valid[talp.ALP_SPLIT:2 * talp.ALP_SPLIT] = False
+    valid = valid.to(cuda)
     before = talp.alp_match_fused.launches
     got = talp.alp_match_fused(q, protos, valid)
     assert talp.alp_match_fused.launches == before + 1
     want = talp.alp_match_fused_plain(q, protos, valid)
-    if all_invalid:
+    if invalid == "all":
         assert torch.equal(got, torch.zeros_like(got))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    # the splits combine in a fixed order with no atomics
+    assert torch.equal(talp.alp_match_fused(q, protos, valid), got)
 
 
 @pytest.mark.cuda
