@@ -20,13 +20,23 @@ Phases, one line each; any failure exits non-zero and prints no result:
    where a control with two peers' chunks swapped must fail
    (``tools.bench_mlp_kernel.check_exchange``); K3 also on masks whose
    components cross its tiles only at their corners or along a diagonal
-   (untimed); K3, K5 and K6 run twice must give the same bits;
+   (untimed); K3, K5 and K6 run twice must give the same bits; K8
+   ``quantize_rows`` (codes and scale bits) and K9 ``int8_dense`` are
+   held bit-equal to their plain versions at the int8 flagship's shapes
+   (DINOv2-L fc2, SAM ViT-B qkv, activations and weights) and a ragged
+   one, and rerun bit-identical;
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
    once as built by default and once with the fused ALP match (K5);
 4. flagship: DINOv2-L/14 at 672 px + SAM ViT-B at 1024, bf16 with the f32
    tails, ``forward_volume`` over 8 smooth synthetic slices, twice; K1-K4
    must have launched on that path;
+4b. flagship int8: the same pipeline with both encoders' dense stages on
+   the int8 W8A8 path (``build_pipeline(quant_dense=True)``, the JAX entry
+   point's default), the same weights and slices; K8 and K9 must have
+   launched and K6 and K7 must not; its masks must agree with phase 4's
+   (mean Dice >= 0.99, the min printed); its wall time is printed beside
+   phase 4's;
 5. ViT-H: the eval configuration with SAM ViT-H and the fused ALP, MLP and
    projection routes, built by ``eval.protosam_eval.build_models``
    (``tools.pipeline_profile.build_config``),
@@ -89,19 +99,21 @@ def phase_build() -> None:
 
 
 def _check(name, kernel_fn, plain_fn, ref_fn, tol_kind, entries, cost,
-           library=None, **meta):
+           library=None, compare=None, **meta):
     """Run the kernel once against the f32 plain version, then time the
     kernel, the plain version and, where there is one, the one library call
     that computes the same function, on the same inputs: per-launch device
     ms, the median of 5 runs of 10 back-to-back launches (the plain
     version: 3 runs of 2).  ``cost`` is the (kernel, shapes) pair that
-    ``kernel_cost`` bounds."""
+    ``kernel_cost`` bounds; ``compare`` maps an output to the tensor that
+    is checked (K8 returns codes and scales)."""
     from protosam_tpu_torch.tools.roofline import kernel_cost
     from protosam_tpu_torch.tools.timing import bf16_error, device_ms
 
-    got = kernel_fn()
+    compare = compare or (lambda out: out)
+    got = compare(kernel_fn())
     torch.cuda.synchronize()
-    want = ref_fn()
+    want = compare(ref_fn())
     if tol_kind == "exact":
         err = float((got.long() - want.long()).abs().max().item())
         ok, bound = torch.equal(got, want), 0.0
@@ -186,6 +198,10 @@ def phase_kernels() -> list[dict]:
                                             mlp_fused_plain)
     from protosam_tpu_torch.ops.norm import (layer_norm_rows,
                                              layer_norm_rows_plain)
+    from protosam_tpu_torch.ops.quant import (int8_matmul_dequant,
+                                              int8_matmul_dequant_plain,
+                                              quantize_rows,
+                                              quantize_rows_plain)
     from protosam_tpu_torch.ops.vitdet_flash import (
         relpos_patch_attention, relpos_patch_attention_plain)
     from protosam_tpu_torch.tools import (bench_dino_flash, bench_fc2,
@@ -408,6 +424,60 @@ def phase_kernels() -> list[dict]:
                lambda: torch.addmm(bfc, xf, wf.T) + rf).median_ms)
     _rerun_identical("dense_residual fc2",
                      lambda: dense_residual(xf, wf, bfc, rf), entries)
+    del xf, rf, wf
+
+    # K8: the int8 flagship's activations (bf16, a scale per token) and
+    # weights (f32, a scale per output channel); codes and scale bits equal
+    k8_bits = lambda out: torch.cat([out[0].flatten().int(),
+                                     out[1].view(torch.int32)])
+    for label in ("K8 DINOv2-L fc2 rows", "K8 DINOv2-L fc2 weight",
+                  "K8 SAM-B qkv rows", "K8 SAM-B qkv weight", "K8 ragged"):
+        cost = MAIN_PATH_SHAPES[label]
+        rows, k, itemsize = (cost[1][key] for key in ("rows", "k",
+                                                      "itemsize"))
+        dt = torch.bfloat16 if itemsize == 2 else torch.float32
+        xq = (randn(rows, k) * (0.02 if itemsize == 4 else 2.0)).to(dt)
+        xq[1] = 0  # a zero row: codes 0, the clamped scale
+        kind = "bf16" if itemsize == 2 else "f32"
+        _check(f"quantize_rows ({rows}x{k} {kind})",
+               lambda: quantize_rows(xq), lambda: quantize_rows_plain(xq),
+               lambda: quantize_rows_plain(xq), "exact", entries, cost,
+               compare=k8_bits, kernel="quantize_rows")
+        _rerun_identical(f"quantize_rows {label}",
+                         lambda: k8_bits(quantize_rows(xq)), entries)
+        del xq
+
+    # K9: the int8 product with its rank-1 dequant, bias and bf16 cast,
+    # bit-equal to the plain version (exact int32 sums through float64);
+    # yardsticks: torch._int_mm with the dequant in torch ops, and bf16
+    # F.linear of the same shape on cuBLAS
+    for label in ("K9 DINOv2-L fc2", "K9 SAM-B qkv", "K9 ragged"):
+        cost = MAIN_PATH_SHAPES[label]
+        m, k, n = (cost[1][key] for key in ("m", "k", "n"))
+        qa = torch.randint(-127, 128, (m, k), generator=g,
+                           dtype=torch.int8).to(dev)
+        qb = torch.randint(-127, 128, (n, k), generator=g,
+                           dtype=torch.int8).to(dev)
+        sx = torch.rand(m, generator=g).to(dev) * 1e-2
+        sw = torch.rand(n, generator=g).to(dev) * 1e-3
+        bq = randn(n)
+        xa, wa, ba = bf(m, k), bf(n, k, sc=0.02), bq.to(torch.bfloat16)
+        int_mm = lambda: ((torch._int_mm(qa, qb.T).float() * sx[:, None])
+                          * sw + bq).to(torch.bfloat16)
+        _check(f"int8_dense ({m}x{k} x {k}x{n} int8, bf16 out)",
+               lambda: int8_matmul_dequant(qa, qb, sx, sw, bq,
+                                           torch.bfloat16),
+               lambda: int8_matmul_dequant_plain(qa, qb, sx, sw, bq,
+                                                 torch.bfloat16),
+               lambda: int8_matmul_dequant_plain(qa, qb, sx, sw, bq,
+                                                 torch.bfloat16),
+               "exact", entries, cost, kernel="int8_dense",
+               int_mm_dequant_ms=device_ms(int_mm).median_ms,
+               bf16_linear_ms=device_ms(
+                   lambda: F.linear(xa, wa, ba)).median_ms)
+        _rerun_identical(f"int8_dense {label}", lambda: int8_matmul_dequant(
+            qa, qb, sx, sw, bq, torch.bfloat16), entries)
+        del qa, qb, xa, wa
     return entries
 
 
@@ -470,11 +540,11 @@ def read_counts(counters: dict) -> dict:
 
 
 def drive_path(tag: str, pipe, counters: dict, required: list[str],
-               seed: int) -> tuple[dict, torch.Tensor]:
+               seed: int) -> tuple[dict, torch.Tensor, list[float]]:
     """``forward_volume`` over 8 smooth 672² slices at slice_batch 4, twice:
     the counts are zeroed just before the first pass and read just after
     it; the second pass must repeat the first bit for bit.  Returns the
-    launch counts and the masks."""
+    launch counts, the masks and the two walls in ms/slice."""
     from protosam_tpu_torch.ops.cca import connected_components
     from protosam_tpu_torch.utils.synthetic import (smooth_volume,
                                                     synthetic_episode)
@@ -515,10 +585,14 @@ def drive_path(tag: str, pipe, counters: dict, required: list[str],
     if missing:
         raise AssertionError(f"kernels never launched on the path: "
                              f"{missing}")
-    return launches, preds
+    return launches, preds, [first / n * 1e3, second / n * 1e3]
 
 
-def phase_flagship(counters: dict) -> dict:
+FLAGSHIP_KERNELS = ["layer_norm_rows", "packed_masked_attention",
+                    "relpos_patch_attention", "cca_label"]
+
+
+def phase_flagship(counters: dict) -> tuple[dict, torch.Tensor, list]:
     """The flagship (SAM ViT-B) runs K1-K4."""
     from protosam_tpu_torch.tools.pipeline_profile import build_config
 
@@ -527,9 +601,41 @@ def phase_flagship(counters: dict) -> dict:
     torch.cuda.synchronize()
     log(f"phase 4 flagship: built DINOv2-L/14 672 + SAM ViT-B bf16 in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches, _ = drive_path("phase 4 flagship", pipe, counters,
-                             ["layer_norm_rows", "packed_masked_attention",
-                              "relpos_patch_attention", "cca_label"], seed=6)
+    return drive_path("phase 4 flagship", pipe, counters, FLAGSHIP_KERNELS,
+                      seed=6)
+
+
+def phase_flagship_int8(counters: dict, bf16_preds: torch.Tensor,
+                        bf16_walls: list) -> dict:
+    """The flagship with both encoders' dense stages on the int8 path (the
+    same seeded weights and slices as phase 4) runs K1-K4, K8 and K9 and
+    neither K6 nor K7, and its masks agree with phase 4's bf16 masks at
+    mean Dice >= 0.99."""
+    from protosam_tpu_torch.tools.pipeline_profile import build_config
+
+    t0 = time.perf_counter()
+    pipe = build_config("flagship_int8", "cuda")
+    torch.cuda.synchronize()
+    log(f"phase 4b flagship int8: built DINOv2-L/14 672 + SAM ViT-B bf16, "
+        f"int8 dense stages, in {time.perf_counter() - t0:.1f} s")
+    launches, preds, walls = drive_path(
+        "phase 4b flagship int8", pipe, counters,
+        FLAGSHIP_KERNELS + ["quantize_rows", "int8_dense"], seed=6)
+    del pipe
+    fused = {k: launches[k] for k in ("dense_residual", "mlp_fused")}
+    if any(fused.values()):
+        raise AssertionError(f"the int8 path launched K6 or K7: {fused}")
+    log(f"phase 4b flagship int8: wall {walls[0]:.1f} / {walls[1]:.1f} "
+        f"ms/slice (first / second run) against phase 4's bf16 "
+        f"{bf16_walls[0]:.1f} / {bf16_walls[1]:.1f}")
+    dices = [dice(a, b) for a, b in zip(preds.cpu(), bf16_preds.cpu())]
+    mean = sum(dices) / len(dices)
+    log(f"phase 4b flagship int8: masks against phase 4's bf16 masks, same "
+        f"weights: mean Dice {mean:.5f}, min {min(dices):.5f} (per slice "
+        f"{[round(d, 5) for d in dices]})")
+    if mean < 0.99:
+        raise AssertionError(f"int8 masks disagree with bf16's: mean Dice "
+                             f"{mean} < 0.99")
     return launches
 
 
@@ -546,8 +652,8 @@ def phase_vith(counters: dict) -> dict:
     torch.cuda.synchronize()
     log(f"phase 5 vit_h: built DINOv2-L/14 672 + SAM ViT-H bf16 (fused ALP, "
         f"MLP, proj) in {time.perf_counter() - t0:.1f} s")
-    launches, preds = drive_path("phase 5 vit_h", pipe, counters,
-                                 list(_REPLACES), seed=8)
+    launches, preds, _ = drive_path("phase 5 vit_h", pipe, counters,
+                                    VITH_KERNELS, seed=8)
     del pipe
     plain = build_config("vit_h_unfused", "cuda")
     vol = smooth_volume(N_SLICES, 672, seed=8).cuda()
@@ -569,6 +675,8 @@ def phase_vith(counters: dict) -> dict:
     return launches
 
 
+# the port's kernel -> (its source, the JAX function it replaces); K1-K7
+# replace Pallas kernels, K8 and K9 the XLA-fused JAX int8 path
 _REPLACES = {
     "layer_norm_rows": ("protosam_tpu_torch/csrc/layer_norm.cu",
                         "protosam_tpu/ops/norm.py:86"),
@@ -584,7 +692,14 @@ _REPLACES = {
                        "protosam_tpu/ops/mlp_pallas.py:88"),
     "mlp_fused": ("protosam_tpu_torch/csrc/mlp_fused.cu",
                   "protosam_tpu/ops/mlp_pallas.py:125"),
+    "quantize_rows": ("protosam_tpu_torch/csrc/int8_dense.cu",
+                      "protosam_tpu/ops/quant.py:37"),
+    "int8_dense": ("protosam_tpu_torch/csrc/int8_dense.cu",
+                   "protosam_tpu/ops/quant.py:51"),
 }
+# the kernels of the ViT-H path (phase 5) and of the int8 flagship (4b)
+INT8_KERNELS = ["quantize_rows", "int8_dense"]
+VITH_KERNELS = [k for k in _REPLACES if k not in INT8_KERNELS]
 
 
 # the design of the kernels whose entries name it
@@ -594,6 +709,13 @@ _DESIGN = {
     "alp_match": "prototype range split across blocks (128 a split, 64 "
                  "pixels a block, 8 x 8 f32 register tiles, cp.async "
                  "ring), softmax partials merged by a combine pass",
+    "quantize_rows": "one warp a row held in registers as 16-byte "
+                     "vectors, amax by shuffles, __fdiv_rn / "
+                     "__float2int_rn (a loop kernel for longer rows)",
+    "int8_dense": "mma.sync m16n8k32 s8, 128 x 128 tiles on 8 warps, "
+                  "two-stage cp.async ring of 64-byte K steps, rank-1 "
+                  "dequant + bias + cast in the epilogue (__fmul_rn, "
+                  "__fadd_rn)",
 }
 
 
@@ -602,7 +724,12 @@ _DESIGN = {
 # "none" = PyTorch has no op for the function
 _NO_LIBRARY = {"cca_label": "none", "alp_match": "none",
                "dense_residual": "composite", "mlp_fused": "composite",
-               "fc2": "composite"}
+               "fc2": "composite", "quantize_rows": "none",
+               "int8_dense": "composite"}
+# the composite yardsticks: the modules' own unfused route (K6, K7, fc2);
+# torch._int_mm with the dequant in torch ops, and bf16 F.linear of the
+# same shape (K9)
+_YARDSTICKS = ("unfused_ms", "int_mm_dequant_ms", "bf16_linear_ms")
 
 
 def _numbers(row: dict) -> dict:
@@ -610,20 +737,22 @@ def _numbers(row: dict) -> dict:
                                "library_ms")}
     if row["library_ms"] is None:
         out["library_note"] = _NO_LIBRARY[row["kernel"]]
-    if "unfused_ms" in row:
-        out["unfused_ms"] = row["unfused_ms"]
+    out.update({k: row[k] for k in _YARDSTICKS if k in row})
     return out
 
 
 def kernel_report(checks: list[dict], launches: dict,
-                  flagship_launches: dict, tools: dict) -> dict:
+                  flagship_launches: dict, int8_launches: dict,
+                  tools: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
     global ones under ``vit_b_*`` and ``vit_b_global_*``, and each
-    geometry's ``check_bias`` result; K5: P = 577).  ``launches`` counts the
-    ViT-H path (phase 5), which runs all seven kernels;
-    ``flagship_launches`` the ViT-B flagship (phase 4).  Rows 13 and 14 of
+    geometry's ``check_bias`` result; K5: P = 577; K8: the DINOv2-L fc2
+    activations; K9: DINOv2-L fc2).  ``launches`` counts the ViT-H path
+    (phase 5), which runs K1-K7, for K1-K7 and the int8 flagship (phase
+    4b) for K8 and K9; ``flagship_launches`` the ViT-B flagship (phase 4),
+    ``flagship_int8_launches`` the int8 flagship.  Rows 13 and 14 of
     the kernel table take their times from the tools' own runs (phase 6),
     at the tools' shapes, and their launches from those runs.  K2 carries
     its ``check_mask`` result; its f32 and bf16-score instantiations live
@@ -632,9 +761,11 @@ def kernel_report(checks: list[dict], launches: dict,
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
         main = rows[-1] if name == "alp_match" else rows[0]
+        path = int8_launches if name in INT8_KERNELS else launches
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces, "launches": path[name],
                  "flagship_launches": flagship_launches.get(name, 0),
+                 "flagship_int8_launches": int8_launches.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -752,6 +883,8 @@ def main() -> int:
     from protosam_tpu_torch.ops.cca import label_components
     from protosam_tpu_torch.ops.mlp import dense_residual, mlp_fused
     from protosam_tpu_torch.ops.norm import layer_norm_rows
+    from protosam_tpu_torch.ops.quant import (int8_matmul_dequant,
+                                              quantize_rows)
     from protosam_tpu_torch.ops.vitdet_flash import relpos_patch_attention
 
     # kernel -> (its wrapper, the wrapper's count of its launches)
@@ -764,6 +897,8 @@ def main() -> int:
         "alp_match": (alp_match_fused, "launches"),
         "dense_residual": (dense_residual, "launches"),
         "mlp_fused": (mlp_fused, "launches"),
+        "quantize_rows": (quantize_rows, "launches"),
+        "int8_dense": (int8_matmul_dequant, "launches"),
         "bf16_scores": (masked_flash_attention_packed,
                         "bf16_score_launches"),
     }
@@ -771,10 +906,12 @@ def main() -> int:
     phase_build()
     checks = phase_kernels()
     phase_wiring()
-    flagship = phase_flagship(counters)
+    flagship, bf16_preds, bf16_walls = phase_flagship(counters)
+    int8 = phase_flagship_int8(counters, bf16_preds, bf16_walls)
+    del bf16_preds
     launches = phase_vith(counters)
     tools = phase_tools(counters)
-    log(json.dumps(kernel_report(checks, launches, flagship, tools)))
+    log(json.dumps(kernel_report(checks, launches, flagship, int8, tools)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,10 @@
 upsample, prompt encoder and mask decoder), ``ProtoSAMConfig()`` defaults
 (cca mode, both point modes, box prompts, ``max_ccs=8``) and synthetic
 weights from a seed.  The defaults are the flagship, the counterpart of
-``__graft_entry__._flagship`` with int8 off (SAM ViT-B); the ViT-H refine
-configuration sets ``sam_ver="vit_h"`` and the three fused routes
+``__graft_entry__._flagship`` with int8 off (SAM ViT-B); ``quant_dense=True``
+is that entry's default, the int8 W8A8 dense stages in both encoders
+(kernels K8 and K9).  The ViT-H refine configuration sets
+``sam_ver="vit_h"`` and the three fused routes
 (``eval.protosam_eval.build_models`` maps the eval ``Config`` here).
 
     pipe = build_pipeline("cuda")
@@ -37,19 +39,23 @@ def build_pipeline(device: torch.device | str, sam_ver: str = "vit_b",
                    config: ProtoSAMConfig | None = None,
                    seed: int = 0, proto_grid_size: int = 8,
                    use_fused_alp: bool = False, fused_mlp: bool = False,
-                   fused_proj: bool = False) -> ProtoSAM:
+                   fused_proj: bool = False,
+                   quant_dense: bool = False) -> ProtoSAM:
     """Both models built on the meta device, then allocated on ``device``
     with role-aware synthetic weights; the two encoders cast to ``dtype``
     (their norms keep f32 params), everything else stays f32.
     ``use_fused_alp`` puts the ALP matching on kernel K5, ``fused_mlp`` /
-    ``fused_proj`` the bf16 SAM encoder's MLP / projection on K7 / K6."""
+    ``fused_proj`` the bf16 SAM encoder's MLP / projection on K7 / K6,
+    ``quant_dense`` both encoders' dense stages on the int8 path (K8 and
+    K9; their params stay f32, and the two SAM routes turn off)."""
     set_f32_precision()
     with torch.device("meta"):
         coarse_model = FewShotSeg(image_size=image_size, which_model=coarse,
                                   proto_grid_size=proto_grid_size,
-                                  use_fused_alp=use_fused_alp)
+                                  use_fused_alp=use_fused_alp,
+                                  quant_dense=quant_dense)
         sam = build_sam(sam_ver, image_size=sam_size, fused_mlp=fused_mlp,
-                        fused_proj=fused_proj)
+                        fused_proj=fused_proj, quant_dense=quant_dense)
     materialize(coarse_model, device, seed)
     materialize(sam, device, seed + 1)
     cast_compute(coarse_model.encoder, dtype)

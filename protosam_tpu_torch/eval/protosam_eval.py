@@ -27,16 +27,15 @@ def build_models(cfg: Config, device: torch.device | str = "cuda",
     """The ProtoSAM pipeline of ``cfg`` on ``device`` (the card unless the
     caller asks for the CPU).
 
-    ``cfg.use_fused_alp`` puts the ALP matching on kernel K5.  The SAM
+    ``cfg.use_fused_alp`` puts the ALP matching on kernel K5,
+    ``cfg.quant_dense`` both encoders' dense stages on the int8 path
+    (kernels K8 and K9, which turns the two SAM routes off).  The SAM
     encoder routes come from ``fused_mlp`` / ``fused_proj`` (kernels K7 /
     K6, bf16 only), which the JAX package reads from ``PTPU_MLP_PALLAS`` /
     ``PTPU_PROJ_PALLAS``."""
     if cfg.protosam_sam_ver == "medsam":
         raise NotImplementedError("ProtoMedSAM is not ported yet "
                                   "(ROADMAP §1 item 11)")
-    if cfg.quant_dense:
-        raise NotImplementedError("int8 W8A8 dense stages are not ported "
-                                  "yet (ROADMAP §1 item 10)")
     if cfg.reload_model_path:
         raise NotImplementedError("checkpoint loading is not ported yet "
                                   "(ROADMAP §1 item 12)")
@@ -59,4 +58,4 @@ def build_models(cfg: Config, device: torch.device | str = "cuda",
         sam_size=SAM_IMAGE_SIZE, dtype=dtype, config=pconf, seed=cfg.seed,
         proto_grid_size=cfg.proto_grid_size,
         use_fused_alp=cfg.use_fused_alp, fused_mlp=fused_mlp,
-        fused_proj=fused_proj)
+        fused_proj=fused_proj, quant_dense=cfg.quant_dense)

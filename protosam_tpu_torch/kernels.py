@@ -9,7 +9,8 @@ Nothing is built or imported while this module is imported.
 The op wrappers (``ops/norm.layer_norm_rows``,
 ``ops/attention.masked_flash_attention_packed``, ``ops/cca.label_components``,
 ``ops/vitdet_flash.relpos_patch_attention``, ``ops/alp.alp_match_fused``,
-``ops/mlp.dense_residual``, ``ops/mlp.mlp_fused``) allocate outputs with
+``ops/mlp.dense_residual``, ``ops/mlp.mlp_fused``, ``ops/quant.quantize_rows``,
+``ops/quant.int8_matmul_dequant``) allocate outputs with
 ``torch.empty``, launch through ``launch`` on their tensors' device and its
 current stream, and raise on a non-zero ``cudaGetLastError()``.
 """
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "ptk_alp_match": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ptk_dense_residual": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     "ptk_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "ptk_quantize_rows": (_P, _P, _P, _L, _I, _I, _P),
+    "ptk_int8_dense": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -7,7 +7,9 @@ One encoder pass over [support..., query], masks resized to the feature grid
 bilinear upsample of the 2-class score map to image size.  Scoring and the
 upsample run in f32: their argmax seeds CCA and every SAM prompt.
 ``use_fused_alp`` routes the BG and the per-shot FG matching through kernel
-K5 (JAX ``fewshot.py:53,129-137``).
+K5 (JAX ``fewshot.py:53,129-137``).  ``quant_dense`` makes DINOv2's dense
+stages int8 (JAX ``fewshot.py:54-56,79``); the f32 coarse-logit tail is
+never quantized.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ _ENCODER_ALIASES = {
 class FewShotSeg(nn.Module):
     def __init__(self, image_size: int = 672,
                  which_model: str = "dinov2_l14", proto_grid_size: int = 8,
-                 use_fused_alp: bool = False):
+                 use_fused_alp: bool = False, quant_dense: bool = False):
         super().__init__()
         if which_model not in _ENCODER_ALIASES:
             raise KeyError(f"unsupported coarse backbone {which_model!r}; "
@@ -44,7 +46,8 @@ class FewShotSeg(nn.Module):
         self.which_model = which_model
         self.proto_grid_size = proto_grid_size
         self.use_fused_alp = use_fused_alp
-        self.encoder = build_dinov2(_ENCODER_ALIASES[which_model])
+        self.encoder = build_dinov2(_ENCODER_ALIASES[which_model],
+                                    quant_dense=quant_dense)
 
     @property
     def feature_hw(self) -> int:

@@ -5,6 +5,8 @@ LayerScale, pre-norm blocks and bicubic pos-embed interpolation.
 The reference consumes ``forward_features(...)["x_norm_patchtokens"]``
 (grid_proto_fewshot.py:90-98).  Attention runs on kernel K2 straight from
 the packed qkv projection; the block LayerNorms run on kernel K1.
+``quant_dense`` makes the blocks' qkv, proj, fc1 and fc2 int8 layers
+(``ops/quant.QuantLinear``, kernels K8 and K9), JAX ``vit.py:50-64,111-130``.
 """
 
 from __future__ import annotations
@@ -17,15 +19,17 @@ from torch import nn
 from protosam_tpu_torch.models.layers import (TokenLayerNorm, cast_compute,
                                               gelu_for)
 from protosam_tpu_torch.ops.attention import masked_flash_attention_packed
+from protosam_tpu_torch.ops.quant import dense_cls
 from protosam_tpu_torch.ops.resize import resize_bicubic_torch
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, quant_dense: bool = False):
         super().__init__()
+        linear = dense_cls(quant_dense)
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = linear(dim, 3 * dim)
+        self.proj = linear(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 valid_tokens: int | None) -> torch.Tensor:
@@ -46,23 +50,25 @@ class LayerScale(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, quant_dense: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        linear = dense_cls(quant_dense)
+        self.fc1 = linear(dim, hidden)
+        self.fc2 = linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_for(self.fc1(x)))
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 quant_dense: bool = False):
         super().__init__()
         self.norm1 = TokenLayerNorm(dim, 1e-6)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, quant_dense)
         self.ls1 = LayerScale(dim)
         self.norm2 = TokenLayerNorm(dim, 1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant_dense)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor,
@@ -77,7 +83,7 @@ class DinoVisionTransformer(nn.Module):
                  mlp_ratio: float = 4.0, num_register_tokens: int = 0,
                  pos_embed_size: int = 37,
                  interpolate_antialias: bool = False,
-                 interpolate_offset: float = 0.1):
+                 interpolate_offset: float = 0.1, quant_dense: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -96,8 +102,9 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(3, embed_dim, patch_size,
                                           patch_size)
-        self.blocks = nn.ModuleList(Block(embed_dim, num_heads, mlp_ratio)
-                                    for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, quant_dense)
+            for _ in range(depth))
         # f32 even under a bf16 build: it feeds the ALP cosine match whose
         # argmax seeds CCA and every SAM prompt (the f32 coarse tail)
         self.norm = TokenLayerNorm(embed_dim, 1e-6, out_dtype=torch.float32)
@@ -172,11 +179,13 @@ _DINO_CONFIGS: dict[str, dict[str, Any]] = {
 }
 
 
-def build_dinov2(name: str) -> DinoVisionTransformer:
+def build_dinov2(name: str,
+                 quant_dense: bool = False) -> DinoVisionTransformer:
     if name not in _DINO_CONFIGS:
         raise KeyError(f"unknown DINOv2 variant {name!r}; "
                        f"have {sorted(_DINO_CONFIGS)}")
-    return DinoVisionTransformer(**_DINO_CONFIGS[name])
+    return DinoVisionTransformer(quant_dense=quant_dense,
+                                 **_DINO_CONFIGS[name])
 
 
 __all__ = ["DinoVisionTransformer", "build_dinov2", "cast_compute"]

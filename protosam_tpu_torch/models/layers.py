@@ -10,6 +10,7 @@ from torch import nn
 
 from protosam_tpu_torch.ops.mlp import mlp_fused
 from protosam_tpu_torch.ops.norm import layer_norm_tokens
+from protosam_tpu_torch.ops.quant import QuantLinear, dense_cls
 
 
 class TokenLayerNorm(nn.Module):
@@ -58,19 +59,24 @@ class MLPBlock(nn.Module):
     (both products, the tanh GELU and the residual in one kernel; JAX
     ``layers.py:80-117``).  The kernel hard-codes the tanh GELU, which is
     ``act`` under bf16 for the SAM encoder, its only caller.  The
-    parameters stay ``lin1`` / ``lin2`` either way.
+    parameters stay ``lin1`` / ``lin2`` either way.  ``quant_dense`` makes
+    both int8 layers (``ops/quant.QuantLinear``) and takes precedence over
+    ``fused``: a quant block never runs K7 (JAX ``layers.py:89-90``).
     """
 
     def __init__(self, embedding_dim: int, mlp_dim: int,
-                 act: Callable[[torch.Tensor], torch.Tensor]):
+                 act: Callable[[torch.Tensor], torch.Tensor],
+                 quant_dense: bool = False):
         super().__init__()
-        self.lin1 = nn.Linear(embedding_dim, mlp_dim)
-        self.lin2 = nn.Linear(mlp_dim, embedding_dim)
+        linear = dense_cls(quant_dense)
+        self.lin1 = linear(embedding_dim, mlp_dim)
+        self.lin2 = linear(mlp_dim, embedding_dim)
         self.act = act
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
                 fused: bool = False) -> torch.Tensor:
-        if fused and x.dtype == torch.bfloat16 and x.ndim == 2:
+        if (fused and not isinstance(self.lin1, QuantLinear)
+                and x.dtype == torch.bfloat16 and x.ndim == 2):
             return mlp_fused(x, self.lin1.weight, self.lin1.bias,
                              self.lin2.weight, self.lin2.bias, residual)
         y = self.lin2(self.act(self.lin1(x)))
@@ -103,10 +109,14 @@ def gelu_for(x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast a module's weights to the compute dtype, keeping normalisation
-    params in f32 as flax does under a bf16 build."""
-    module.to(dtype)
+    """Cast a module's params to the compute dtype (the encoders hold no
+    buffers).  Normalisation params and ``QuantLinear`` params are not cast
+    at all: flax keeps the norms' params f32 under a bf16 build and uses
+    them unrounded, and the int8 path quantizes the f32 params, as JAX
+    ``QuantDense`` does; a round trip through bf16 would move them."""
     for m in module.modules():
-        if isinstance(m, (TokenLayerNorm, LayerNorm2d, nn.LayerNorm)):
-            m.float()
+        if not isinstance(m, (QuantLinear, TokenLayerNorm, LayerNorm2d,
+                              nn.LayerNorm)):
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(dtype)
     return module

@@ -12,6 +12,11 @@ the compact decomposed rel-pos bias; the block LayerNorms run on kernel K1.
 kernel K6 and the MLP with its residual on kernel K7.  They apply only to
 bf16 activations; under f32 a block keeps the plain composition, the JAX
 rule at ``image_encoder.py:429-430,465-475``.
+
+``quant_dense`` makes qkv, proj, lin1 and lin2 int8 layers
+(``ops/quant.QuantLinear``, kernels K8 and K9) and takes precedence over
+both routes: a quant block runs neither K6 nor K7 (JAX
+``image_encoder.py:362``, ``layers.py:89-90``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 from protosam_tpu_torch.models.layers import (LayerNorm2d, MLPBlock,
                                               TokenLayerNorm, gelu_for)
 from protosam_tpu_torch.ops.mlp import dense_residual
+from protosam_tpu_torch.ops.quant import QuantLinear, dense_cls
 from protosam_tpu_torch.ops.vitdet_flash import (global_packed_attention,
                                                  window_packed_attention)
 
@@ -52,22 +58,23 @@ class Attention(nn.Module):
     means global attention over the whole (square) grid."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 input_size: tuple[int, int]):
+                 input_size: tuple[int, int], quant_dense: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         hd = dim // num_heads
         self.scale = hd ** -0.5
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        linear = dense_cls(quant_dense)
+        self.qkv = linear(dim, 3 * dim)
+        self.proj = linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
 
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         """x (B, H, W, C) -> proj(attention), plus ``residual`` when given:
-        under bf16 the projection and the add run as kernel K6 on the
-        flattened (B·H·W, C) rows."""
+        under bf16 without ``quant_dense`` the projection and the add run as
+        kernel K6 on the flattened (B·H·W, C) rows."""
         b, h, w, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)                                  # (B, H, W, 3C)
@@ -100,7 +107,7 @@ class Attention(nn.Module):
                                           self.scale)[:, :h, :w]
         if residual is None:
             return self.proj(out)
-        if out.dtype != torch.bfloat16:
+        if out.dtype != torch.bfloat16 or isinstance(self.proj, QuantLinear):
             return residual + self.proj(out)
         return dense_residual(out.reshape(-1, c), self.proj.weight,
                               self.proj.bias, residual.reshape(-1, c)
@@ -110,16 +117,17 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  window_size: int, input_size: tuple[int, int],
-                 fused_mlp: bool = False, fused_proj: bool = False):
+                 fused_mlp: bool = False, fused_proj: bool = False,
+                 quant_dense: bool = False):
         super().__init__()
         self.fused_mlp = fused_mlp
         self.fused_proj = fused_proj
         self.norm1 = TokenLayerNorm(dim, 1e-6)
         self.attn = Attention(dim, num_heads, window_size,
                               input_size if window_size == 0
-                              else (window_size, window_size))
+                              else (window_size, window_size), quant_dense)
         self.norm2 = TokenLayerNorm(dim, 1e-6)
-        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), gelu_for)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), gelu_for, quant_dense)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bf16 = x.dtype == torch.bfloat16
@@ -144,7 +152,8 @@ class ImageEncoderViT(nn.Module):
                  mlp_ratio: float = 4.0, out_chans: int = 256,
                  window_size: int = 14,
                  global_attn_indexes: Sequence[int] = (),
-                 fused_mlp: bool = False, fused_proj: bool = False):
+                 fused_mlp: bool = False, fused_proj: bool = False,
+                 quant_dense: bool = False):
         super().__init__()
         grid = img_size // patch_size
         self.img_size = img_size
@@ -155,7 +164,7 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio,
                   0 if i in global_attn_indexes else window_size,
-                  (grid, grid), fused_mlp, fused_proj)
+                  (grid, grid), fused_mlp, fused_proj, quant_dense)
             for i in range(depth))
         self.neck = nn.Sequential(
             nn.Conv2d(embed_dim, out_chans, 1, bias=False),

@@ -55,13 +55,15 @@ class PromptEncoder(nn.Module):
         self.point_embeddings = nn.ModuleList(
             nn.Embedding(1, embed_dim) for _ in range(4))
         self.not_a_point_embed = nn.Embedding(1, embed_dim)
-        self.no_mask_embed = nn.Embedding(1, embed_dim)
         self.mask_downscaling = nn.Sequential(
             nn.Conv2d(1, mask_in_chans // 4, 2, 2),
             LayerNorm2d(mask_in_chans // 4), nn.GELU(),
             nn.Conv2d(mask_in_chans // 4, mask_in_chans, 2, 2),
             LayerNorm2d(mask_in_chans), nn.GELU(),
             nn.Conv2d(mask_in_chans, embed_dim, 1))
+        # assigned after mask_downscaling, as in the reference, so that the
+        # state_dict lists the keys in the reference's order
+        self.no_mask_embed = nn.Embedding(1, embed_dim)
 
     def _pe_points(self, coords: torch.Tensor) -> torch.Tensor:
         size = torch.tensor([self.input_image_size[1],

@@ -26,12 +26,17 @@ _CONFIGS = {
 
 
 def build_sam(model_type: str = "vit_b", image_size: int = 1024,
-              fused_mlp: bool = False, fused_proj: bool = False) -> Sam:
+              fused_mlp: bool = False, fused_proj: bool = False,
+              quant_dense: bool = False) -> Sam:
     """``fused_mlp`` / ``fused_proj`` put the encoder's bf16 MLP and
     attention projection on kernels K7 / K6 (the JAX package's
-    ``PTPU_MLP_PALLAS`` / ``PTPU_PROJ_PALLAS``; off by default there too)."""
+    ``PTPU_MLP_PALLAS`` / ``PTPU_PROJ_PALLAS``; off by default there too).
+    ``quant_dense`` makes the image encoder's dense stages int8 (kernels K8
+    and K9) and turns both routes off; the prompt encoder and the mask
+    decoder are never quantized."""
     if model_type not in _CONFIGS:
         raise KeyError(f"unknown SAM model type {model_type!r}; "
                        f"have {sorted(_CONFIGS)}")
     return Sam(image_size=image_size, fused_mlp=fused_mlp,
-               fused_proj=fused_proj, **_CONFIGS[model_type])
+               fused_proj=fused_proj, quant_dense=quant_dense,
+               **_CONFIGS[model_type])

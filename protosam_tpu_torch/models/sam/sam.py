@@ -22,7 +22,7 @@ class Sam(nn.Module):
                  encoder_global_attn_indexes: tuple = (2, 5, 8, 11),
                  prompt_embed_dim: int = 256, image_size: int = 1024,
                  vit_patch_size: int = 16, fused_mlp: bool = False,
-                 fused_proj: bool = False):
+                 fused_proj: bool = False, quant_dense: bool = False):
         super().__init__()
         grid = image_size // vit_patch_size
         self.image_size = image_size
@@ -33,7 +33,10 @@ class Sam(nn.Module):
             embed_dim=encoder_embed_dim, depth=encoder_depth,
             num_heads=encoder_num_heads, out_chans=prompt_embed_dim,
             window_size=14, global_attn_indexes=encoder_global_attn_indexes,
-            fused_mlp=fused_mlp, fused_proj=fused_proj)
+            fused_mlp=fused_mlp, fused_proj=fused_proj,
+            quant_dense=quant_dense)
+        # the decode tail keeps nn.Linear: it is never quantized (JAX
+        # sam.py:54-57)
         self.prompt_encoder = PromptEncoder(
             embed_dim=prompt_embed_dim, image_embedding_size=(grid, grid),
             input_image_size=(image_size, image_size), mask_in_chans=16)

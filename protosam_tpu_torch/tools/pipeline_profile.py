@@ -2,7 +2,8 @@
 of ``tools/pipeline_profile.py``.
 
 Builds a configuration (``flagship``: DINOv2-L/14 at 672 px + SAM ViT-B;
-``vit_h``: the eval configuration with SAM ViT-H and the fused ALP, MLP and
+``flagship_int8``: the same with both encoders' dense stages on the int8
+W8A8 path, kernels K8 and K9, the JAX entry point's default; ``vit_h``: the eval configuration with SAM ViT-H and the fused ALP, MLP and
 projection routes, as ``chip_smoke.py`` phase 5 drives it;
 ``vit_h_unfused``: the same weights with the three routes off), runs
 ``forward_volume`` once to warm up, then once more with the five stage
@@ -15,7 +16,8 @@ host clock ending in a synchronize.  Inputs are smooth synthetic 672²
 slices and a seeded support episode (``utils/synthetic.py``).
 
     python3 -m protosam_tpu_torch.tools.pipeline_profile
-        [--config flagship|vit_h|vit_h_unfused] [--slice-batch 4]
+        [--config flagship|flagship_int8|vit_h|vit_h_unfused]
+        [--slice-batch 4]
         [--slices 8] [--runs 3]
 """
 
@@ -32,7 +34,7 @@ from protosam_tpu_torch.utils.profiling import StageTimer
 from protosam_tpu_torch.utils.synthetic import (smooth_volume,
                                                 synthetic_episode)
 
-CONFIGS = ("flagship", "vit_h", "vit_h_unfused")
+CONFIGS = ("flagship", "flagship_int8", "vit_h", "vit_h_unfused")
 IMAGE_SIZE = 672
 
 
@@ -43,8 +45,8 @@ def build_config(name: str, device: torch.device | str = "cuda"):
     from protosam_tpu_torch.eval.protosam_eval import build_models
     from protosam_tpu_torch.utils.config import Config
 
-    if name == "flagship":
-        return build_pipeline(device)
+    if name in ("flagship", "flagship_int8"):
+        return build_pipeline(device, quant_dense=name == "flagship_int8")
     if name not in CONFIGS:
         raise KeyError(f"unknown configuration {name!r}; have {CONFIGS}")
     fused = name == "vit_h"

@@ -2,8 +2,9 @@
 counterpart of ``tools/roofline.py``.
 
 Peaks are NVIDIA's published figures for the H100 SXM (dense, no
-sparsity), which assume the full 700 W power limit: 989 TFLOP/s bf16 on the
-tensor cores, 67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s of HBM.  A card
+sparsity), which assume the full 700 W power limit: 989 TFLOP/s bf16 and
+1979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on the CUDA cores, 3.35
+TB/s of HBM.  A card
 set below 700 W runs slower under load, so the tool prints the card's own
 ``power.limit`` beside them.  The JAX tool's ``PEAK_TFS = 190`` and its
 ``DEMONSTRATED_MS_*`` / ``MEASURED_MS_PER_SLICE`` tables are TPU
@@ -32,6 +33,7 @@ from __future__ import annotations
 import argparse
 
 PEAK_BF16 = 989e12   # FLOP/s, tensor cores, dense
+PEAK_INT8 = 1979e12  # OP/s, tensor cores, dense
 PEAK_F32 = 67e12     # FLOP/s, CUDA cores
 HBM_BYTES_S = 3.35e12
 PEAKS_AT_W = 700
@@ -99,7 +101,7 @@ def sam_flops(ver: str, image_size: int = 1024,
 
 
 def _peak(itemsize: int) -> float:
-    return PEAK_BF16 if itemsize == 2 else PEAK_F32
+    return {1: PEAK_INT8, 2: PEAK_BF16}.get(itemsize, PEAK_F32)
 
 
 def _layer_norm_rows(rows, c, itemsize=2, out_itemsize=None):
@@ -145,6 +147,20 @@ def _mlp_fused(m, c, h, residual=True):
     return 4 * m * c * h, 2 * (acts + 2 * h * c + h + c), PEAK_BF16
 
 
+def _quantize_rows(rows, k, itemsize=2):
+    # |x|, the max, the divide and the rounding: ~4 f32 ops per element;
+    # the rows in, the codes and a scale per row out
+    return 4 * rows * k, rows * k * (itemsize + 1) + 4 * rows, PEAK_F32
+
+
+def _int8_dense(m, k, n, out_itemsize=2, bias=True):
+    # the int8 product on the tensor cores; the codes, both scales and the
+    # bias in, the dequantized output out
+    return (2 * m * k * n,
+            (m + n) * k + 4 * (m + n + (n if bias else 0))
+            + m * n * out_itemsize, _peak(1))
+
+
 _COSTS = {
     "layer_norm_rows": _layer_norm_rows,
     "packed_masked_attention": _packed_masked_attention,
@@ -153,6 +169,8 @@ _COSTS = {
     "alp_match": _alp_match,
     "dense_residual": _dense_residual,
     "mlp_fused": _mlp_fused,
+    "quantize_rows": _quantize_rows,
+    "int8_dense": _int8_dense,
 }
 
 
@@ -187,6 +205,23 @@ MAIN_PATH_SHAPES = {
     "K5 P = 577": ("alp_match", dict(n=4, c=1024, hw=2304, p=577)),
     "K6 ViT-H proj": ("dense_residual", dict(m=2 * 4096, k=1280, n=1280)),
     "K7 ViT-H MLP": ("mlp_fused", dict(m=2 * 4096, c=1280, h=5120)),
+    # the int8 flagship's dense stages at slice_batch 4: DINOv2-L fc2
+    # (4 x 2432 padded tokens, 4096 -> 1024) and SAM ViT-B qkv (4 x 4096
+    # tokens, 768 -> 2304); K8 on the bf16 activations and the f32 weight
+    "K8 DINOv2-L fc2 rows": ("quantize_rows",
+                             dict(rows=4 * 2432, k=4096, itemsize=2)),
+    "K8 DINOv2-L fc2 weight": ("quantize_rows",
+                               dict(rows=1024, k=4096, itemsize=4)),
+    "K8 SAM-B qkv rows": ("quantize_rows",
+                          dict(rows=4 * 4096, k=768, itemsize=2)),
+    "K8 SAM-B qkv weight": ("quantize_rows",
+                            dict(rows=2304, k=768, itemsize=4)),
+    "K8 ragged": ("quantize_rows", dict(rows=9221, k=1040, itemsize=2)),
+    "K9 DINOv2-L fc2": ("int8_dense", dict(m=4 * 2432, k=4096, n=1024)),
+    "K9 SAM-B qkv": ("int8_dense", dict(m=4 * 4096, k=768, n=2304)),
+    # ragged: M and N not multiples of the 128 x 128 tile, K ends inside
+    # a 64-byte step
+    "K9 ragged": ("int8_dense", dict(m=9221, k=1040, n=1000)),
 }
 
 

@@ -1,10 +1,11 @@
 """A device trace of one steady ``forward_volume`` on the card: the
 counterpart of ``tools/trace_volume.py``.
 
-Builds a configuration (as ``pipeline_profile``: ``flagship``, ``vit_h``
-or ``vit_h_unfused``), warms it up with one ``forward_volume``, then runs
-one more under ``torch.profiler`` (CPU and CUDA activities) inside a
-``forward_volume`` range that ends in a synchronize, and prints:
+Builds a configuration (as ``pipeline_profile``: ``flagship``,
+``flagship_int8``, ``vit_h`` or ``vit_h_unfused``), warms it up with one
+``forward_volume``, then runs one more under ``torch.profiler`` (CPU and
+CUDA activities) inside a ``forward_volume`` range that ends in a
+synchronize, and prints:
 
 - the device busy and idle share: the union of the CUDA kernel, copy and
   memset intervals over that range;
@@ -12,11 +13,12 @@ one more under ``torch.profiler`` (CPU and CUDA activities) inside a
 - where the chrome trace was written (``runs/``, not committed).
 
 If ``key_averages()`` shows no CUDA time (the profiler did not reach the
-card), it fails rather than print zeros.  The JAX tool's int8 switch has
-no counterpart: int8 is not ported.
+card), it fails rather than print zeros.  The JAX tool's int8 switch is
+``--config flagship_int8``.
 
     python3 -m protosam_tpu_torch.tools.trace_volume
-        [--config flagship|vit_h|vit_h_unfused] [--slice-batch 4]
+        [--config flagship|flagship_int8|vit_h|vit_h_unfused]
+        [--slice-batch 4]
         [--slices 8] [--top 20] [--logdir runs/trace_volume]
 """
 

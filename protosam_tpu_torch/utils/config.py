@@ -128,8 +128,8 @@ class Config:
     slice_batch: int = 4
     max_ccs: int = 8
     use_fused_alp: bool = False   # fused ALP kernel K5 (inference only)
-    # W8A8 int8 dense stages in both encoders: not ported to this package
-    # yet (build_models raises)
+    # W8A8 int8 dense stages in both encoders (ops/quant.py, kernels K8 and
+    # K9; inference only)
     quant_dense: bool = False
 
     @property

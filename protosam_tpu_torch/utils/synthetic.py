@@ -5,11 +5,17 @@ pipeline with.
 Filling every tensor with N(0, 0.02²) would make normalisation scales ~0,
 degenerate the activations and let the data-dependent stages (CCA, prompt
 top-k, the empty-prediction fallback) take unrepresentatively cheap paths.
-So tensors are filled by role, as a real checkpoint would have them:
+So tensors are filled by role, with the roles of the JAX package's
+``utils/synthetic.synthetic_params`` (the ``bench.py`` recipe):
 
-  * LayerNorm / LayerScale weights -> 1 + 0.02·N(0, 1)
+  * LayerNorm / LayerScale weights -> 1 + 0.02·N(0, 1)  (flax ``scale`` /
+                                      ``gamma``)
   * biases                         -> 0
   * everything else                -> 0.02·N(0, 1)
+
+LayerNorm2d's weight is "everything else" there: its flax leaf is named
+``weight``, so SAM's neck, mask-downscaling and output-upscaling norms get
+0.02·N(0, 1), as here.
 """
 
 from __future__ import annotations
@@ -22,16 +28,20 @@ from protosam_tpu_torch.models.io_protocol import ALPNetInput
 from protosam_tpu_torch.models.layers import LayerNorm2d, TokenLayerNorm
 from protosam_tpu_torch.ops.resize import resize_bilinear
 
-_NORMS = (TokenLayerNorm, LayerNorm2d, nn.LayerNorm)
+_NORMS = (TokenLayerNorm, nn.LayerNorm)
 
 
-def synthetic_state_dict(module: nn.Module,
-                         seed: int = 0) -> dict[str, torch.Tensor]:
+def synthetic_state_dict(module: nn.Module, seed: int = 0,
+                         unit_norm2d: bool = False) -> dict[str, torch.Tensor]:
     """f32 CPU tensors for every ``state_dict`` entry of ``module`` (which
-    may live on the meta device), drawn in key order from one generator."""
+    may live on the meta device), drawn in key order from one generator.
+    ``unit_norm2d`` gives LayerNorm2d weights the norms' 1 + 0.02·N (the
+    same draws plus 1): the tests' tiny SAM decodes all-foreground masks
+    from JAX's 0.02·N."""
     rng = np.random.default_rng(seed)
+    norms = _NORMS + ((LayerNorm2d,) if unit_norm2d else ())
     norm_weights = {f"{name}.weight" for name, m in module.named_modules()
-                    if isinstance(m, _NORMS)}
+                    if isinstance(m, norms)}
     out = {}
     for key, t in module.state_dict().items():
         noise = rng.standard_normal(tuple(t.shape), dtype=np.float32)

@@ -17,7 +17,8 @@ import torch
 
 from protosam_tpu_torch import kernels
 from protosam_tpu_torch.entry import set_f32_precision
-from protosam_tpu_torch.ops import alp, attention, cca, mlp, norm, vitdet_flash
+from protosam_tpu_torch.ops import (alp, attention, cca, mlp, norm, quant,
+                                   vitdet_flash)
 
 CARD = torch.device("cuda", 1)
 STREAM = 7321  # the fake current stream of CARD
@@ -76,13 +77,26 @@ def _k7(on):
                          on(r(16, 32)), on(r(16)), on(r(4, 16)))
 
 
+def _k8(on):
+    return quant.quantize_rows(on(_inputs(torch.bfloat16)(8, 32)))[0]
+
+
+def _k9(on):
+    codes = torch.ones(4, 32, dtype=torch.int8)
+    r = _inputs()
+    return quant.int8_matmul_dequant(on(codes), on(codes[:3]), on(r(4)),
+                                     on(r(3)), on(r(3)), torch.bfloat16)
+
+
 WRAPPERS = {"K1": (_k1, "ptk_layer_norm_rows"),
             "K2": (_k2, "ptk_packed_masked_attention"),
             "K3": (_k3, "ptk_cca_label"),
             "K4": (_k4, "ptk_relpos_patch_attention"),
             "K5": (_k5, "ptk_alp_match"),
             "K6": (_k6, "ptk_dense_residual"),
-            "K7": (_k7, "ptk_mlp_fused")}
+            "K7": (_k7, "ptk_mlp_fused"),
+            "K8": (_k8, "ptk_quantize_rows"),
+            "K9": (_k9, "ptk_int8_dense")}
 
 
 @pytest.fixture

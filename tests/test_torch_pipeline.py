@@ -40,12 +40,14 @@ def cuda():
 
 
 def seeded_state_dict(module, seed):
-    """The synthetic fill plus N(0, 0.05²) on every entry, so biases are
-    non-zero and attention is far from uniform."""
+    """The synthetic fill, LayerNorm2d weights near 1, plus N(0, 0.05²)
+    on every entry, so biases are non-zero and attention is far from
+    uniform."""
     rng = np.random.default_rng(seed + 100)
     return {k: v + torch.from_numpy(
                 0.05 * rng.standard_normal(tuple(v.shape), dtype=np.float32))
-            for k, v in synthetic_state_dict(module, seed).items()}
+            for k, v in synthetic_state_dict(module, seed,
+                                             unit_norm2d=True).items()}
 
 
 def jax_dinov2_params(sd, prefix=""):

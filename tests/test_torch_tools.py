@@ -50,7 +50,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 TOOLS = ("bench_fc2", "microbench_attn", "bench_attn", "bench_dino_flash",
          "bench_cca", "bench_mlp_kernel", "bench_dino_encoder",
          "bench_sam_encoder", "pipeline_profile", "trace_volume",
-         "roofline", "ptxas_report")
+         "roofline", "ptxas_report", "microbench_int8",
+         "measure_int8_drift")
 
 
 @functools.cache
@@ -285,13 +286,20 @@ _HAND = {
            8 * 4864 * 1024, 4864 * 1024 * 4 + 2 * 1024 * 4, 67e12),
     "K3": ("cca_label", dict(b=5, h=1024, w=1024), 0, 5 * 1024 * 1024 * 5,
            67e12),
+    "K8": ("quantize_rows", dict(rows=9728, k=4096, itemsize=2),
+           4 * 9728 * 4096, 9728 * 4096 * (2 + 1) + 4 * 9728, 67e12),
+    "K9": ("int8_dense", dict(m=9728, k=4096, n=1024),
+           2 * 9728 * 4096 * 1024,
+           (9728 + 1024) * 4096 + 4 * (9728 + 2 * 1024) + 9728 * 1024 * 2,
+           1979e12),
 }
 # the shape-derived bounds in ms, as rounded in PERF.md
 _BOUNDS = {"K7": (0.217, "operations"), "K6": (0.027, "operations"),
            "K2": (0.046, "operations"), "K4 global": (0.174, "operations"),
            "K4 window": (0.033, "bytes"), "K5": (0.163, "operations"),
            "K1": (0.006, "bytes"), "row13": (0.52, "operations"),
-           "row14": (0.186, "operations"), "K3": (0.008, "bytes")}
+           "row14": (0.186, "operations"), "K3": (0.008, "bytes"),
+           "K8": (0.036, "bytes"), "K9": (0.041, "operations")}
 
 
 @pytest.mark.parametrize("case", list(_HAND))

@@ -75,12 +75,14 @@ def t(a):
 
 
 def seeded_state_dict(module, seed):
-    """The synthetic fill plus N(0, 0.05²) on every entry, so biases are
-    non-zero and attention is far from uniform."""
+    """The synthetic fill, LayerNorm2d weights near 1, plus N(0, 0.05²)
+    on every entry, so biases are non-zero and attention is far from
+    uniform."""
     rng = np.random.default_rng(seed + 100)
     return {k: v + torch.from_numpy(
                 0.05 * rng.standard_normal(tuple(v.shape), dtype=np.float32))
-            for k, v in synthetic_state_dict(module, seed).items()}
+            for k, v in synthetic_state_dict(module, seed,
+                                             unit_norm2d=True).items()}
 
 
 def jax_dinov2_params(sd, prefix=""):
@@ -428,9 +430,9 @@ def test_build_models_passes_routes_and_seed():
     (dict(modelname="dinov2_t14", protosam_sam_ver="medsam"),
      NotImplementedError),
     (dict(modelname="dinov2_t14", protosam_sam_ver="vit_t",
-          quant_dense=True), NotImplementedError),
+          reload_model_path="alpnet.pth"), NotImplementedError),
     (dict(protosam_sam_ver="vit_t"), KeyError),  # dlfcn_res101 backbone
-], ids=["medsam", "int8", "resnet"])
+], ids=["medsam", "checkpoint", "resnet"])
 def test_build_models_refuses_what_is_not_ported(overrides, err):
     with pytest.raises(err):
         protosam_eval.build_models(Config(**overrides), device="cpu")
