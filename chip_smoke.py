@@ -21,9 +21,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (``tools.bench_mlp_kernel.check_exchange``); K3 also on masks whose
    components cross its tiles only at their corners or along a diagonal
    (untimed); K3, K5 and K6 run twice must give the same bits; K8
-   ``quantize_rows`` (codes and scale bits) and K9 ``int8_dense`` are
-   held bit-equal to their plain versions at the int8 flagship's shapes
-   (DINOv2-L fc2, SAM ViT-B qkv, activations and weights) and a ragged
+   ``quantize_rows`` (codes and scale bits; one operand, and both operands
+   of DINOv2-L fc2 in the one launch a layer makes,
+   ``quantize_operands``) and K9 ``int8_dense`` are held bit-equal to
+   their plain versions at the int8 flagship's shapes (DINOv2-L qkv, fc1
+   and fc2, SAM ViT-B qkv and fc2, activations and weights) and a ragged
    one, and rerun bit-identical;
 3. wiring: the tiny pipeline (dinov2_t14 at 126 px + SAM vit_t at 256) on
    the card with kernels against the same weights and inputs on the CPU,
@@ -34,9 +36,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
 4b. flagship int8: the same pipeline with both encoders' dense stages on
    the int8 W8A8 path (``build_pipeline(quant_dense=True)``, the JAX entry
    point's default), the same weights and slices; K8 and K9 must have
-   launched and K6 and K7 must not; its masks must agree with phase 4's
-   (mean Dice >= 0.99, the min printed); its wall time is printed beside
-   phase 4's;
+   launched, equally often (one K8 launch a layer), and K6 and K7 must
+   not; its masks must agree with phase 4's (mean Dice >= 0.99, the min
+   printed); its wall time is printed beside phase 4's; then the same
+   build with the fused MLP and projection routes requested runs one batch,
+   where K6 and K7 must still not launch and the masks must agree with the
+   first build's;
 5. ViT-H: the eval configuration with SAM ViT-H and the fused ALP, MLP and
    projection routes, built by ``eval.protosam_eval.build_models``
    (``tools.pipeline_profile.build_config``),
@@ -200,6 +205,7 @@ def phase_kernels() -> list[dict]:
                                              layer_norm_rows_plain)
     from protosam_tpu_torch.ops.quant import (int8_matmul_dequant,
                                               int8_matmul_dequant_plain,
+                                              quantize_operands,
                                               quantize_rows,
                                               quantize_rows_plain)
     from protosam_tpu_torch.ops.vitdet_flash import (
@@ -442,16 +448,33 @@ def phase_kernels() -> list[dict]:
         _check(f"quantize_rows ({rows}x{k} {kind})",
                lambda: quantize_rows(xq), lambda: quantize_rows_plain(xq),
                lambda: quantize_rows_plain(xq), "exact", entries, cost,
-               compare=k8_bits, kernel="quantize_rows")
+               compare=k8_bits, kernel="quantize_rows", label=label)
         _rerun_identical(f"quantize_rows {label}",
                          lambda: k8_bits(quantize_rows(xq)), entries)
         del xq
+    # K8 as the main path launches it: both operands of DINOv2-L fc2 (bf16
+    # activations, f32 weight) in one launch
+    label = "K8 DINOv2-L fc2 operands"
+    cost = MAIN_PATH_SHAPES[label]
+    m, n, k = (cost[1][key] for key in ("m", "n", "k"))
+    xq, wq = (randn(m, k) * 2.0).to(torch.bfloat16), randn(n, k) * 0.02
+    xq[1], wq[1] = 0, 0
+    both_bits = lambda out: torch.cat([k8_bits(out[:2]), k8_bits(out[2:])])
+    plain_both = lambda: (*quantize_rows_plain(xq), *quantize_rows_plain(wq))
+    _check(f"quantize_operands ({m}x{k} bf16 + {n}x{k} f32, one launch)",
+           lambda: quantize_operands(xq, wq), plain_both, plain_both,
+           "exact", entries, cost, compare=both_bits, kernel="quantize_rows",
+           label=label, operands=True)
+    _rerun_identical(f"quantize_operands {label}",
+                     lambda: both_bits(quantize_operands(xq, wq)), entries)
+    del xq, wq
 
     # K9: the int8 product with its rank-1 dequant, bias and bf16 cast,
     # bit-equal to the plain version (exact int32 sums through float64);
     # yardsticks: torch._int_mm with the dequant in torch ops, and bf16
     # F.linear of the same shape on cuBLAS
-    for label in ("K9 DINOv2-L fc2", "K9 SAM-B qkv", "K9 ragged"):
+    for label in ("K9 DINOv2-L fc2", "K9 DINOv2-L qkv", "K9 DINOv2-L fc1",
+                  "K9 SAM-B qkv", "K9 SAM-B fc2", "K9 ragged"):
         cost = MAIN_PATH_SHAPES[label]
         m, k, n = (cost[1][key] for key in ("m", "k", "n"))
         qa = torch.randint(-127, 128, (m, k), generator=g,
@@ -471,7 +494,7 @@ def phase_kernels() -> list[dict]:
                                                  torch.bfloat16),
                lambda: int8_matmul_dequant_plain(qa, qb, sx, sw, bq,
                                                  torch.bfloat16),
-               "exact", entries, cost, kernel="int8_dense",
+               "exact", entries, cost, kernel="int8_dense", label=label,
                int_mm_dequant_ms=device_ms(int_mm).median_ms,
                bf16_linear_ms=device_ms(
                    lambda: F.linear(xa, wa, ba)).median_ms)
@@ -612,6 +635,8 @@ def phase_flagship_int8(counters: dict, bf16_preds: torch.Tensor,
     neither K6 nor K7, and its masks agree with phase 4's bf16 masks at
     mean Dice >= 0.99."""
     from protosam_tpu_torch.tools.pipeline_profile import build_config
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
 
     t0 = time.perf_counter()
     pipe = build_config("flagship_int8", "cuda")
@@ -621,10 +646,19 @@ def phase_flagship_int8(counters: dict, bf16_preds: torch.Tensor,
     launches, preds, walls = drive_path(
         "phase 4b flagship int8", pipe, counters,
         FLAGSHIP_KERNELS + ["quantize_rows", "int8_dense"], seed=6)
+    # one batch of the same slices, the reference of routes_requested
+    batch = (smooth_volume(N_SLICES, 672, seed=6)[:SLICE_BATCH].cuda(),
+             synthetic_episode(672, "cuda", 7))
+    ref, _ = pipe.forward_volume(*batch, slice_batch=SLICE_BATCH)
     del pipe
     fused = {k: launches[k] for k in ("dense_residual", "mlp_fused")}
     if any(fused.values()):
         raise AssertionError(f"the int8 path launched K6 or K7: {fused}")
+    if launches["quantize_rows"] != launches["int8_dense"]:
+        raise AssertionError(f"K8 launched {launches['quantize_rows']} "
+                             f"times for {launches['int8_dense']} K9 "
+                             f"launches: not one a layer")
+    routes_requested(counters, batch, ref)
     log(f"phase 4b flagship int8: wall {walls[0]:.1f} / {walls[1]:.1f} "
         f"ms/slice (first / second run) against phase 4's bf16 "
         f"{bf16_walls[0]:.1f} / {bf16_walls[1]:.1f}")
@@ -637,6 +671,39 @@ def phase_flagship_int8(counters: dict, bf16_preds: torch.Tensor,
         raise AssertionError(f"int8 masks disagree with bf16's: mean Dice "
                              f"{mean} < 0.99")
     return launches
+
+
+def routes_requested(counters: dict, batch: tuple,
+                     ref: torch.Tensor) -> None:
+    """The int8 flagship built with the fused MLP and projection routes
+    requested: quant turns K6 and K7 off, so one batch of the phase 4b
+    slices launches K8 and K9 but neither, and gives the masks ``ref`` of
+    the first build on the same batch (the same seeded weights)."""
+    from protosam_tpu_torch.entry import build_pipeline
+
+    pipe = build_pipeline("cuda", quant_dense=True, fused_mlp=True,
+                          fused_proj=True)
+    zero_counts(counters)
+    preds, _ = pipe.forward_volume(*batch, slice_batch=SLICE_BATCH)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    del pipe
+    log(f"phase 4b flagship int8, fused MLP and projection requested: "
+        f"kernel launches {launches}")
+    fused = {k: launches[k] for k in ("dense_residual", "mlp_fused")}
+    if any(fused.values()) or not (launches["quantize_rows"]
+                                   and launches["int8_dense"]):
+        raise AssertionError(f"with the fused routes requested the int8 "
+                             f"path must launch K8 and K9 and not K6 or "
+                             f"K7: {launches}")
+    dices = [dice(a, b) for a, b in zip(preds.cpu(), ref.cpu())]
+    same = torch.equal(preds.cpu(), ref.cpu())
+    log(f"phase 4b flagship int8, fused routes requested: masks against "
+        f"the first build's on the same batch: mean Dice "
+        f"{sum(dices) / len(dices):.5f}, bit-equal {same}")
+    if sum(dices) / len(dices) < 0.99:
+        raise AssertionError("the int8 build with the routes requested "
+                             "disagrees with the one without")
 
 
 def phase_vith(counters: dict) -> dict:
@@ -709,13 +776,17 @@ _DESIGN = {
     "alp_match": "prototype range split across blocks (128 a split, 64 "
                  "pixels a block, 8 x 8 f32 register tiles, cp.async "
                  "ring), softmax partials merged by a combine pass",
-    "quantize_rows": "one warp a row held in registers as 16-byte "
-                     "vectors, amax by shuffles, __fdiv_rn / "
-                     "__float2int_rn (a loop kernel for longer rows)",
-    "int8_dense": "mma.sync m16n8k32 s8, 128 x 128 tiles on 8 warps, "
-                  "two-stage cp.async ring of 64-byte K steps, rank-1 "
-                  "dequant + bias + cast in the epilogue (__fmul_rn, "
-                  "__fadd_rn)",
+    "quantize_rows": "both operands of a layer in one launch; a team of "
+                     "1-8 warps a row held in registers as 16-byte "
+                     "vectors (4 or 8 a lane, at most 64 registers a "
+                     "thread at 4), amax by shuffles and shared memory, "
+                     "__fdiv_rn / __float2int_rn",
+    "int8_dense": "persistent warp-specialised s8 wgmma m64n256k32 GEMM, "
+                  "128 x 256 tiles on two consumer warpgroups, a loader "
+                  "warp keeping a four-stage TMA ring full and staging sw "
+                  "and bias in shared memory, rank-1 dequant + bias + cast "
+                  "in the epilogue (__fmul_rn, __fadd_rn), stored through "
+                  "a per-warp staging tile as whole 128-byte lines",
 }
 
 
@@ -749,7 +820,8 @@ def kernel_report(checks: list[dict], launches: dict,
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
     global ones under ``vit_b_*`` and ``vit_b_global_*``, and each
     geometry's ``check_bias`` result; K5: P = 577; K8: the DINOv2-L fc2
-    activations; K9: DINOv2-L fc2).  ``launches`` counts the ViT-H path
+    operands in one launch; K9: DINOv2-L fc2; both with every phase-2
+    shape's numbers under ``per_shape``).  ``launches`` counts the ViT-H path
     (phase 5), which runs K1-K7, for K1-K7 and the int8 flagship (phase
     4b) for K8 and K9; ``flagship_launches`` the ViT-B flagship (phase 4),
     ``flagship_int8_launches`` the int8 flagship.  Rows 13 and 14 of
@@ -761,6 +833,8 @@ def kernel_report(checks: list[dict], launches: dict,
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
         main = rows[-1] if name == "alp_match" else rows[0]
+        if name == "quantize_rows":  # the main path's one launch a layer
+            main = next(r for r in rows if r.get("operands"))
         path = int8_launches if name in INT8_KERNELS else launches
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": path[name],
@@ -772,6 +846,8 @@ def kernel_report(checks: list[dict], launches: dict,
             entry.update(design=_DESIGN[name],
                          rerun_identical=all(r["rerun_identical"]
                                              for r in rows))
+        if name in INT8_KERNELS:
+            entry.update(per_shape={r["label"]: _numbers(r) for r in rows})
         if name == "cca_label":
             entry.update(tile_class_equal=main["tile_class_equal"])
         if name == "packed_masked_attention":

@@ -218,21 +218,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 (rows, cols) matrix read in boxes of box_rows x
-// box_cols (at most 256 each), 128B-swizzled (box_cols at most 64: one
-// 128-byte row) or, with CU_TENSOR_MAP_SWIZZLE_NONE, row after row; reads
-// past either edge fill zeros
+// the bytes of one element of a tensor map's data type (those used here)
+inline uint32_t elem_bytes(CUtensorMapDataType dtype) {
+  switch (dtype) {
+    case CU_TENSOR_MAP_DATA_TYPE_UINT8: return 1;
+    case CU_TENSOR_MAP_DATA_TYPE_FLOAT32: return 4;
+    default: return 2;  // bf16, f16
+  }
+}
+
+// a row-major (rows, cols) matrix of `dtype` (bf16 by default; UINT8 for
+// int8 codes) read in boxes of box_rows x box_cols (at most 256 each),
+// 128B-swizzled (box_cols at most one 128-byte row: 64 bf16, 128 codes) or,
+// with CU_TENSOR_MAP_SWIZZLE_NONE, row after row; reads past either edge
+// fill zeros.  The row stride, cols elements, must be a multiple of 16
+// bytes.
 inline bool tensor_map(
     CUtensorMap* map, EncodeTiled enc, const void* ptr, uint64_t rows,
     uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[1] = {cols * elem_bytes(dtype)};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -3,9 +3,8 @@
 // Replaces JAX protosam_tpu/ops/quant.py `quantize_symmetric` (:37) and
 // `int8_dense` (:51), which are not Pallas kernels: XLA fuses the quantize
 // into the int8 dot's operand stream and the dequant into its output.
-// Here the quantize is its own kernel (K8), run once on the activations
-// and once on the weight, and the dequant is the epilogue of the product
-// (K9).  Both hold JAX's numerics bit for bit:
+// Here the quantize of both operands is one kernel (K8), and the dequant is
+// the epilogue of the product (K9).  Both hold JAX's numerics bit for bit:
 //
 //   scale = max(amax(|x|), 1e-12) / 127 (f32), q = round_half_even(x / scale)
 //   out   = ((f32(qa . qb) * sx[m]) * sw[n]) + bias[n], cast to the out type
@@ -16,37 +15,90 @@
 // __int2float_rn, __float2int_rn).
 //
 // K8: bound by device memory (one read, a quarter or half the bytes
-// written).  One warp a row: each lane loads its share of the row as
-// 16-byte vectors into registers, once (V vectors a lane, a template
-// parameter), the amax is a shuffle reduction, and the codes go out from
-// the same registers.  The weight takes the same kernel: nn.Linear's (N, K)
-// rows are its output channels, JAX's per-channel scale of the (K, N)
-// kernel.  Rows longer than kMaxVecs vectors a lane (f32 weights at K >=
-// 3072) or not a whole number of vectors take a loop kernel that reads the
-// row a second time (from L1/L2) for the codes.
+// written).  One launch takes both operands of a layer: the blocks before
+// `xs.blocks` quantize the activation rows, the rest the weight rows
+// (nn.Linear's (N, K) rows are its output channels, JAX's per-channel
+// scale of the (K, N) kernel).  A team of 1, 2, 4 or 8 warps holds a row in
+// registers as V 16-byte vectors a lane (V = 4, or 8 where a row needs it:
+// f32 rows past K = 4096), read once; the amax is a shuffle reduction, across
+// a team's warps through shared memory, and the codes go out from the same
+// registers.  Residency sets the rate: a lane holding 16 vectors needs
+// 164 registers, one block of 8 warps an SM, and reached 38% of the bound;
+// at V = 4 a thread takes at most 64 registers, four blocks an SM, and
+// several warps share a long row.  The exact divide costs about a tenth
+// (tools/stamp_int8.py, `reciprocal`) and stays, for JAX's bits.  Rows
+// that are not a whole number of 16-byte vectors, or longer than 8 warps
+// hold, take a loop kernel that reads the row a second time.
 //
-// K9: A (M, K) and B (N, K) int8, both K-major as they stand, the layout
-// the 8-bit tensor-core instructions take.  mma.sync m16n8k32 s8 x s8 ->
-// s32, 128 x 128 block tiles over 8 warps (2 x 4, 64 x 32 each), a K step
-// of 64 bytes through a two-stage cp.async ring; rows padded to 80 bytes so
-// ldmatrix reads are free of bank conflicts.  The accumulator is exact:
-// |sum| <= K * 127^2 < 2^31 for K < 133,000.  The rank-1 dequant, the bias
-// and the cast run in the epilogue, masked to M and N.  K must be a
-// multiple of 16 (16-byte copies; the wrapper raises otherwise).  A simple
-// kernel: wgmma, TMA and a persistent schedule are later work.
+// K9: bound by the int8 tensor-core rate (1979 TOP/s at 700 W).  A
+// persistent, warp-specialised GEMM on Hopper's s8 wgmma, built as K6
+// (csrc/dense_residual.cu) is:
+// - A (M, K) and B (N, K) int8 are both K-major as they stand, the only
+//   layout wgmma takes for 8-bit operands.  A CTA owns 128 x 256 output
+//   tiles: two consumer warpgroups of 64 rows, each issuing SS wgmma
+//   m64n256k32 with a 64 x 256 s32 accumulator (128 registers a thread),
+//   and one loader warp (288 threads, at most 168 registers a thread).  The
+//   accumulator is exact: |sum| <= K * 127^2 < 2^31 for K < 133,000.
+// - Loads: one loader thread keeps a ring of four TMA stages full, each an
+//   A tile (128 rows x 128 codes, 16 KB) and a B tile (256 x 128, 32 KB),
+//   128B-swizzled, with a full and an empty mbarrier a stage (arrivals
+//   release at CTA scope).  A consumer warpgroup keeps one stage's products
+//   in flight and frees the stage before once they complete.  TMA fills
+//   rows past M or N and columns past K with zeros.
+// - Persistent grid: min(tiles, SMs) CTAs; CTA b takes tiles b, b + G, ...,
+//   numbered column index fastest, so a row block's column tiles run in one
+//   wave and B stays in L2.  The ring's phases carry across tiles, so the
+//   loader runs into the next tile while the consumers write out the last.
+// - Epilogue: the loader warp also copies each tile's sw and bias (256
+//   each, f32) into a double-buffered shared tile before its k-tiles, and
+//   the consumers load their rows' sx before the products, so the epilogue
+//   reads no global memory.  Each thread holds column pairs of the wgmma D
+//   fragments; a warp writes its 16 rows, dequantized and cast, 128 bytes
+//   a row at a time into a staging tile of its own, reads them back as
+//   16-byte vectors and stores whole 128-byte lines, masked to M and N (a
+//   vector that crosses N, or any vector where N is not a multiple of 16
+//   bytes, one element at a time).  Storing the D fragments' pairs straight
+//   to device memory, 16 bytes of a row a warp instruction, took about 6.5
+//   us a tile at every K, twice the products at K = 768
+//   (tools/stamp_int8.py, `pairs`).  The epilogue (about 2.3 us) still
+//   does not overlap the products; two warpgroups taking turns on separate
+//   128 x 128 tiles hid it but were no faster at K <= 1024: the 128-wide
+//   products run slower, and a four-warp epilogue takes longer.
+// - No split-K and no atomics: reruns are bit-identical.  K is a multiple
+//   of 16 (TMA's 16-byte row stride; the wrapper raises otherwise).  Waits
+//   trap after about two seconds (cluster.cuh), so a broken pipeline ends
+//   the launch with an error instead of hanging the card.
+#include <atomic>
 #include <cstdint>
+#include <initializer_list>
 
+#include <cuda.h>
+
+#include "cluster.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
+using namespace ptk;
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------------ K8
 
-constexpr int kQuantWarps = 8;  // rows a block
-constexpr int kMaxVecs = 20;    // a lane: bf16 K <= 5120, f32 K <= 2560
+constexpr int kQuantThreads = 256;
+constexpr int kQuantWarps = kQuantThreads / 32;
+
+// a set of rows of one input type: (rows, k) -> codes (rows, k) and a
+// scale a row; `team` warps a row, `blocks` blocks of kQuantWarps / team
+// rows
+struct RowSet {
+  const void* x;
+  int8_t* q;
+  float* scale;
+  long rows;
+  int team;
+  long blocks;
+};
 
 __device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
   v[0] = __uint_as_float(q.x);
@@ -59,8 +111,7 @@ __device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
   const uint32_t u[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+    const float2 f = unpack_bf16(u[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
@@ -97,23 +148,28 @@ __device__ __forceinline__ void store_codes(int8_t* p, const float (&v)[W],
     *reinterpret_cast<uint32_t*>(p) = u[0];
 }
 
-// K a multiple of W = 16 / sizeof(Tin), K / W <= 32 V: the row read once
+// one row of `set` a team: block `block` of the set, K a multiple of
+// W = 16 / sizeof(Tin), K / W <= 32 V team
 template <typename Tin, int V>
-__global__ void __launch_bounds__(kQuantWarps * 32)
-quantize_rows_vec_kernel(const Tin* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ scale, long n_rows, int k) {
+__device__ __forceinline__ void quantize_team(const RowSet& set, long block,
+                                              int k, float* red) {
   constexpr int W = 16 / sizeof(Tin);
-  const long row = (long)blockIdx.x * kQuantWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team = set.team;
+  const long row = block * (kQuantWarps / team) + warp / team;
+  const int tl = (warp % team) * 32 + lane;  // this thread in its team
+  const int span = 32 * team;
   const int nvec = k / W;
-  const Tin* xr = x + row * k;
+  const bool live = row < set.rows;
+  const Tin* xr = static_cast<const Tin*>(set.x) + (live ? row : 0) * k;
   uint4 raw[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i)
-    raw[i] = 32 * i + lane < nvec
-                 ? *reinterpret_cast<const uint4*>(xr + (32 * i + lane) * W)
+  for (int i = 0; i < V; ++i) {
+    const int at = span * i + tl;
+    raw[i] = live && at < nvec
+                 ? *reinterpret_cast<const uint4*>(xr + (long)at * W)
                  : make_uint4(0u, 0u, 0u, 0u);  // +0.0 in both types
+  }
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -122,87 +178,154 @@ quantize_rows_vec_kernel(const Tin* __restrict__ x, int8_t* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < W; ++j) amax = fmaxf(amax, fabsf(v[j]));
   }
-  const float s = row_scale(warp_max(amax));
-  if (lane == 0) scale[row] = s;
-  int8_t* qr = q + row * k;
+  amax = warp_max(amax);
+  if (team > 1) {  // the same in the whole block
+    if (lane == 0) red[warp] = amax;
+    __syncthreads();
+    const int first = warp - warp % team;
+    amax = red[first];
+    for (int w = 1; w < team; ++w) amax = fmaxf(amax, red[first + w]);
+  }
+  if (!live) return;
+  const float s = row_scale(amax);
+  if (tl == 0) set.scale[row] = s;
+  int8_t* qr = set.q + row * k;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    if (32 * i + lane >= nvec) continue;
+    const int at = span * i + tl;
+    if (at >= nvec) continue;
     float v[W];
     unpack(raw[i], v);
-    store_codes<W>(qr + (32 * i + lane) * W, v, s);
+    store_codes<W>(qr + (long)at * W, v, s);
   }
 }
 
-// any K: strided scalar loads, the row read a second time for the codes
+// at V = 4, four blocks an SM (64 registers a thread)
+template <typename Tx, typename Tw, int V>
+__global__ void __launch_bounds__(kQuantThreads, V == 4 ? 4 : 2)
+quantize_rows_kernel(RowSet xs, RowSet ws, int k) {
+  __shared__ float red[kQuantWarps];
+  if (blockIdx.x < xs.blocks)
+    quantize_team<Tx, V>(xs, blockIdx.x, k, red);
+  else
+    quantize_team<Tw, V>(ws, blockIdx.x - xs.blocks, k, red);
+}
+
+// any K: one warp a row, strided scalar loads, the row read a second time
+// for the codes
 template <typename Tin>
-__global__ void __launch_bounds__(kQuantWarps * 32)
-quantize_rows_loop_kernel(const Tin* __restrict__ x, int8_t* __restrict__ q,
-                          float* __restrict__ scale, long n_rows, int k) {
-  const long row = (long)blockIdx.x * kQuantWarps + threadIdx.x / 32;
+__device__ __forceinline__ void quantize_row_loop(const RowSet& set,
+                                                  long block, int k) {
+  const long row = block * kQuantWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  const Tin* xr = x + row * k;
+  if (row >= set.rows) return;
+  const Tin* xr = static_cast<const Tin*>(set.x) + row * k;
   float amax = 0.f;
-  for (int i = lane; i < k; i += 32) amax = fmaxf(amax, fabsf(ptk::to_f32(xr[i])));
+  for (int i = lane; i < k; i += 32) amax = fmaxf(amax, fabsf(to_f32(xr[i])));
   const float s = row_scale(warp_max(amax));
-  if (lane == 0) scale[row] = s;
-  int8_t* qr = q + row * k;
-  for (int i = lane; i < k; i += 32)
-    qr[i] = (int8_t)__float2int_rn(__fdiv_rn(ptk::to_f32(xr[i]), s));
+  if (lane == 0) set.scale[row] = s;
+  int8_t* qr = set.q + row * k;
+  for (int i = lane; i < k; i += 32) qr[i] = (int8_t)code(to_f32(xr[i]), s);
 }
 
-template <typename Tin, int V>
-int launch_quant_vec(const Tin* x, int8_t* q, float* scale, long n_rows,
-                     int k, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n_rows + kQuantWarps - 1) / kQuantWarps));
-  quantize_rows_vec_kernel<Tin, V>
-      <<<grid, kQuantWarps * 32, 0, stream>>>(x, q, scale, n_rows, k);
-  return (int)cudaGetLastError();
+template <typename Tx, typename Tw>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows_loop_kernel(RowSet xs, RowSet ws, int k) {
+  if (blockIdx.x < xs.blocks)
+    quantize_row_loop<Tx>(xs, blockIdx.x, k);
+  else
+    quantize_row_loop<Tw>(ws, blockIdx.x - xs.blocks, k);
 }
 
-template <typename Tin>
-int launch_quant(const void* xv, int8_t* q, float* scale, long n_rows, int k,
-                 cudaStream_t stream) {
-  const Tin* x = static_cast<const Tin*>(xv);
-  constexpr int W = 16 / sizeof(Tin);
-  const int vecs = (k / W + 31) / 32;  // a lane
-  if (k % W == 0) {
-    // the smallest instantiation that holds the row
-    if (vecs <= 1) return launch_quant_vec<Tin, 1>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 2) return launch_quant_vec<Tin, 2>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 3) return launch_quant_vec<Tin, 3>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 4) return launch_quant_vec<Tin, 4>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 5) return launch_quant_vec<Tin, 5>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 6) return launch_quant_vec<Tin, 6>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 8) return launch_quant_vec<Tin, 8>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 10) return launch_quant_vec<Tin, 10>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 12) return launch_quant_vec<Tin, 12>(x, q, scale, n_rows, k, stream);
-    if (vecs <= 16) return launch_quant_vec<Tin, 16>(x, q, scale, n_rows, k, stream);
-    if (vecs <= kMaxVecs)
-      return launch_quant_vec<Tin, kMaxVecs>(x, q, scale, n_rows, k, stream);
+// the fewest warps a row (1, 2, 4 or 8) that hold a row of k elements as
+// W-element vectors, V a lane; 0 where none does or k is not whole vectors
+int team_for(int k, int w, int v) {
+  if (k % w) return 0;
+  for (int t = 1; t <= kQuantWarps; t *= 2)
+    if (32L * t * v >= k / w) return t;
+  return 0;
+}
+
+void set_blocks(RowSet& set, int team) {
+  set.team = team;
+  const int per = kQuantWarps / team;  // rows a block
+  set.blocks = (set.rows + per - 1) / per;
+}
+
+template <typename Tx, typename Tw>
+int launch_quant(RowSet xs, RowSet ws, int k, cudaStream_t stream) {
+  constexpr int Wx = 16 / sizeof(Tx), Ww = 16 / sizeof(Tw);
+  // an empty set takes no block, whatever its team
+  auto team = [&](const RowSet& set, int w, int v) {
+    return set.rows == 0 ? 1 : team_for(k, w, v);
+  };
+  for (const int v : {4, 8}) {
+    const int tx = team(xs, Wx, v), tw = team(ws, Ww, v);
+    if (tx == 0 || tw == 0) continue;
+    set_blocks(xs, tx);
+    set_blocks(ws, tw);
+    const long grid = xs.blocks + ws.blocks;
+    if (grid >= (1L << 31)) return (int)cudaErrorInvalidValue;
+    if (v == 4)
+      quantize_rows_kernel<Tx, Tw, 4>
+          <<<(unsigned)grid, kQuantThreads, 0, stream>>>(xs, ws, k);
+    else
+      quantize_rows_kernel<Tx, Tw, 8>
+          <<<(unsigned)grid, kQuantThreads, 0, stream>>>(xs, ws, k);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((unsigned)((n_rows + kQuantWarps - 1) / kQuantWarps));
-  quantize_rows_loop_kernel<Tin>
-      <<<grid, kQuantWarps * 32, 0, stream>>>(x, q, scale, n_rows, k);
+  set_blocks(xs, 1);
+  set_blocks(ws, 1);
+  const long grid = xs.blocks + ws.blocks;
+  if (grid >= (1L << 31)) return (int)cudaErrorInvalidValue;
+  quantize_rows_loop_kernel<Tx, Tw>
+      <<<(unsigned)grid, kQuantThreads, 0, stream>>>(xs, ws, k);
   return (int)cudaGetLastError();
+}
+
+template <typename Tx>
+int launch_quant_w(const RowSet& xs, const RowSet& ws, int w_dtype, int k,
+                   cudaStream_t s) {
+  if (w_dtype == kF32) return launch_quant<Tx, float>(xs, ws, k, s);
+  if (w_dtype == kBF16) return launch_quant<Tx, bf16>(xs, ws, k, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------ K9
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;  // tile; K step in bytes
-constexpr int kPitch = kBK + 16;  // a shared row: 80 bytes, 5 chunks
-constexpr int kThreads = 256;     // 8 warps: 2 (M) x 4 (N), 64 x 32 each
+constexpr int kBM = 128;       // rows a tile: two warpgroups of 64
+constexpr int kBN = 256;       // columns a tile: the wgmma's N
+constexpr int kBK = 128;       // k a stage: one 128-byte swizzled row
+constexpr int kStages = 4;
+constexpr int kThreads = 288;  // two consumer warpgroups + a loader warp
 
-// d += a b: a 16 x 32 s8 (row), b 32 x 8 s8 (col), d 16 x 8 s32
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// dynamic shared memory, from a 1024-byte aligned base
+constexpr int kATile = kBM * kBK;
+constexpr int kBTile = kBN * kBK;
+constexpr int kEpiTile = 2 * kBN * 4;  // a tile's sw and bias, f32
+constexpr int kAOff = 0;
+constexpr int kBOff = kAOff + kStages * kATile;
+constexpr int kEpiOff = kBOff + kStages * kBTile;
+// a consumer warp's output staging tile: 16 rows of 128 bytes
+constexpr int kStageRows = 16, kStageTile = kStageRows * 128;
+constexpr int kStageOff = kEpiOff + 2 * kEpiTile;
+constexpr int kBarOff = kStageOff + 8 * kStageTile;
+// barriers: full[kStages], empty[kStages], the epilogue tiles' full[2] and
+// empty[2]
+constexpr int kFull = 0, kEmpty = kStages, kEpiFull = 2 * kStages,
+              kEpiEmpty = kEpiFull + 2;
+constexpr int kSmemBytes = kBarOff + 8 * (kEpiEmpty + 2) + 1024;
+static_assert(kSmemBytes <= 232448, "more than a block's shared memory");
+
+struct DenseArgs {
+  const float* sx;
+  const float* sw;
+  const float* bias;  // null: no bias
+  void* out;
+  int m, n, k;
+  int tiles_n;  // column tiles
+  int tiles;
+};
 
 __device__ __forceinline__ float dequant(int acc, float sx, float sw,
                                          float b, bool has_bias) {
@@ -210,149 +333,260 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
   return has_bias ? __fadd_rn(y, b) : y;
 }
 
-__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+// two adjacent outputs into the staging tile
+__device__ __forceinline__ void stage_pair(unsigned char* p, float v0,
+                                           float v1, float) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
 
-__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+__device__ __forceinline__ void stage_pair(unsigned char* p, float v0,
+                                           float v1, bf16) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+
+// 16 bytes of staged outputs, columns [col, col + 16 / sizeof(Tout)) of
+// row `row`: one store where they lie inside N on a 16-byte boundary,
+// else one element at a time up to N
+template <typename Tout>
+__device__ __forceinline__ void store16(Tout* out, long at, int col, int n,
+                                        const uint4& v) {
+  constexpr int kE = 16 / sizeof(Tout);
+  if (n % kE == 0 && col + kE <= n) {
+    *reinterpret_cast<uint4*>(out + at) = v;
+    return;
+  }
+  const Tout* e = reinterpret_cast<const Tout*>(&v);
+#pragma unroll
+  for (int i = 0; i < kE; ++i)
+    if (col + i < n) out[at + i] = e[i];
 }
 
 template <typename Tout>
-__global__ void __launch_bounds__(kThreads, 2)
-int8_dense_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                  const float* __restrict__ sx, const float* __restrict__ sw,
-                  const float* __restrict__ bias, Tout* __restrict__ out,
-                  int m, int n, int k) {
-  __shared__ __align__(16) int8_t sa[2][kBM * kPitch];
-  __shared__ __align__(16) int8_t sb[2][kBN * kPitch];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_dense_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap, DenseArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int tid = threadIdx.x;
+  const int ktiles = (a.k + kBK - 1) / kBK;
+  const bool has_bias = a.bias != nullptr;
+  auto bar = [&](int i) { return base + kBarOff + 8u * i; };
 
-  // each thread copies two 16-byte chunks of A and two of B a stage;
-  // chunks past M, N or K are zero-filled
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const bool kin = k0 + kc < k;
-      const bool oka = kin && m0 + r < m, okb = kin && n0 + r < n;
-      ptk::cp_async16(ptk::smem_u32(&sa[stage][r * kPitch + kc]),
-                      oka ? a + (long)(m0 + r) * k + k0 + kc : a, oka);
-      ptk::cp_async16(ptk::smem_u32(&sb[stage][r * kPitch + kc]),
-                      okb ? b + (long)(n0 + r) * k + k0 + kc : b, okb);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bar(kFull + i), 1);
+      mbar_init(bar(kEmpty + i), 2);  // one arrival a consumer warpgroup
     }
-    ptk::cp_async_commit();
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int nk = (k + kBK - 1) / kBK;
-  load(0, 0);
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      load((t + 1) & 1, (t + 1) * kBK);
-      ptk::cp_async_wait<1>();
-    } else {
-      ptk::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* ta = sa[t & 1];
-    const int8_t* tb = sb[t & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      // A: lanes 0-15 address rows 0-15 at bytes [kk, kk + 16), lanes
-      // 16-31 the same rows at [kk + 16, kk + 32): a0-a3 of m16n8k32
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ptk::ldsm_x4(af[mi], ptk::smem_u32(
-            ta + (wm + mi * 16 + (lane & 15)) * kPitch + kk +
-            (lane >> 4) * 16));
-      // B: matrices (n 0-7, lo), (n 0-7, hi), (n 8-15, lo), (n 8-15, hi)
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ptk::ldsm_x4(r, ptk::smem_u32(
-            tb + (wn + nj * 16 + (lane >> 4) * 8 + (lane & 7)) * kPitch +
-            kk + ((lane >> 3) & 1) * 16));
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_s8(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-    __syncthreads();  // the stage is free for the load after next
-  }
-
-  // epilogue: thread (g, t) of the warp holds rows g, g + 8 and columns
-  // 2t, 2t + 1 of every 16 x 8 tile
-  const int g = lane >> 2, tq = lane & 3;
-  const bool has_bias = bias != nullptr;
-  const bool pairs = n % 2 == 0;
-  float swv[4][2], bv[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn + ni * 8 + 2 * tq + e;
-      swv[ni][e] = col < n ? sw[col] : 0.f;
-      bv[ni][e] = has_bias && col < n ? bias[col] : 0.f;
+      mbar_init(bar(kEpiFull + e), 32);    // every loader lane
+      mbar_init(bar(kEpiEmpty + e), 256);  // every consumer thread
     }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ------------------------------------------ loader
+    const int lane = tid - 256;
+    int i = 0, e = 0;
+    uint32_t ph = 0, eph = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      const int m0 = t / a.tiles_n * kBM;
+      const int n0 = t % a.tiles_n * kBN;
+      // the tile's weight scales and bias, by the whole warp: every load
+      // issued before the first store, so they wait on memory once
+      float swv[kBN / 32], bv[kBN / 32];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+      for (int c = 0; c < kBN / 32; ++c) {
+        const int col = n0 + 32 * c + lane;
+        swv[c] = col < a.n ? __ldg(a.sw + col) : 0.f;
+        bv[c] = has_bias && col < a.n ? __ldg(a.bias + col) : 0.f;
+      }
+      mbar_wait(bar(kEpiEmpty + e), eph ^ 1);
+      float* ep = reinterpret_cast<float*>(smem + kEpiOff + e * kEpiTile);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + mi * 16 + g + 8 * h;
-      if (row >= m) continue;
-      const float sxr = sx[row];
-      Tout* orow = out + (long)row * n;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * tq;
-        if (col >= n) continue;
-        const float v0 = dequant(acc[mi][ni][2 * h], sxr, swv[ni][0],
-                                 bv[ni][0], has_bias);
-        const float v1 = dequant(acc[mi][ni][2 * h + 1], sxr, swv[ni][1],
-                                 bv[ni][1], has_bias);
-        if (pairs) {
-          store_pair(orow + col, v0, v1);
-        } else {
-          orow[col] = ptk::from_f32<Tout>(v0);
-          if (col + 1 < n) orow[col + 1] = ptk::from_f32<Tout>(v1);
+      for (int c = 0; c < kBN / 32; ++c) {
+        ep[32 * c + lane] = swv[c];
+        ep[kBN + 32 * c + lane] = bv[c];
+      }
+      mbar_arrive(bar(kEpiFull + e));
+      if (++e == 2) {
+        e = 0;
+        eph ^= 1;
+      }
+      if (lane == 0) {
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(bar(kEmpty + i), ph ^ 1);
+          mbar_expect_tx(bar(kFull + i), kATile + kBTile);
+          tma_load_2d(base + kAOff + i * kATile, &amap, bar(kFull + i),
+                      kt * kBK, m0);
+          tma_load_2d(base + kBOff + i * kBTile, &bmap, bar(kFull + i),
+                      kt * kBK, n0);
+          if (++i == kStages) {
+            i = 0;
+            ph ^= 1;
+          }
         }
       }
+      __syncwarp();
     }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  const int w = tid >> 7;  // rows [64 w, 64 w + 64) of the tile
+  const int tw = tid & 127, warp = tw >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row and column
+  const uint64_t da = wgmma_desc(base + kAOff + w * (kATile / 2), 16, 1024);
+  const uint64_t db = wgmma_desc(base + kBOff, 16, 1024);
+  Tout* out = static_cast<Tout*>(a.out);
+
+  int acc[kBN / 2];
+  int i = 0, e = 0;
+  uint32_t ph = 0, eph = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const int m0 = t / a.tiles_n * kBM;
+    const int n0 = t % a.tiles_n * kBN;
+    // acc[4 j + 2 h + c]: tile row 64 w + 16 warp + g + 8 h, column
+    // 8 j + 2 t4 + c; the rows' sx are loaded before the products
+    const int r0 = 64 * w + 16 * warp + g;
+    float sxr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + r0 + 8 * h;
+      sxr[h] = row < a.m ? __ldg(a.sx + row) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) acc[j] = 0;
+    int prev = 0;  // the stage whose products are still in flight
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(bar(kFull + i), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        wgmma_m64n256k32_s8_ss(acc, da + ((i * kATile + kk * 32) >> 4),
+                               db + ((i * kBTile + kk * 32) >> 4), 1);
+      wgmma_commit();
+      // the previous k-tile's products are done: free its stage
+      wgmma_wait<1>();
+      mbar_arrive(bar(kEmpty + prev), tw == 0 && kt > 0);
+      prev = i;
+      if (++i == kStages) {
+        i = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar(kEmpty + prev), tw == 0);
+
+    mbar_wait(bar(kEpiFull + e), eph);
+    const float* ep =
+        reinterpret_cast<const float*>(smem + kEpiOff + e * kEpiTile);
+    // the warp's 16 rows go out in chunks of 128 bytes a row: its pairs
+    // into its staging tile (16-byte units XOR-swizzled by row, so neither
+    // side conflicts on banks), then back as 16-byte vectors, 8 lanes a
+    // row, stored whole lines at a time
+    constexpr int kChunkCols = 128 / (int)sizeof(Tout);  // 64 bf16, 32 f32
+    unsigned char* stg = smem + kStageOff + (tid >> 5) * kStageTile;
+#pragma unroll
+    for (int ch = 0; ch < kBN / kChunkCols; ++ch) {
+#pragma unroll
+      for (int jj = 0; jj < kChunkCols / 8; ++jj) {
+        const int j = ch * kChunkCols / 8 + jj, cl = 8 * j + 2 * t4;
+        const float2 swp = *reinterpret_cast<const float2*>(ep + cl);
+        const float2 bp = *reinterpret_cast<const float2*>(ep + kBN + cl);
+        const int bo = (8 * jj + 2 * t4) * (int)sizeof(Tout);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;
+          stage_pair(stg + r * 128 + (((bo >> 4) ^ (r & 7)) << 4) + (bo & 15),
+                     dequant(acc[4 * j + 2 * h], sxr[h], swp.x, bp.x,
+                             has_bias),
+                     dequant(acc[4 * j + 2 * h + 1], sxr[h], swp.y, bp.y,
+                             has_bias),
+                     Tout{});
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kStageRows / 4; ++i) {
+        const int r = lane / 8 + 4 * i, c = lane % 8;
+        const int row = m0 + 64 * w + 16 * warp + r;
+        const int col = n0 + ch * kChunkCols + c * (16 / (int)sizeof(Tout));
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            stg + r * 128 + ((c ^ (r & 7)) << 4));
+        if (row < a.m && col < a.n)
+          store16(out, (long)row * a.n + col, col, a.n, v);
+      }
+      __syncwarp();
+    }
+    // this thread has read the tile's sw and bias: the buffer may refill
+    mbar_arrive(bar(kEpiEmpty + e));
+    if (++e == 2) {
+      e = 0;
+      eph ^= 1;
+    }
+  }
+}
+
+// raises the kernel's dynamic shared-memory limit on the current device,
+// once a device (the attribute belongs to the device's context)
+template <typename Tout>
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < kCachedDevices ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(int8_dense_kernel<Tout>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <typename Tout>
+int launch_dense(const CUtensorMap& am, const CUtensorMap& bm,
+                 const DenseArgs& a, cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaGetLastError();
+  const cudaError_t e = allow_smem<Tout>();
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(a.tiles < sms ? a.tiles : sms);
+  int8_dense_kernel<Tout><<<grid, kThreads, kSmemBytes, stream>>>(am, bm, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Both operands of a layer in one launch: x (m, k) of x_dtype -> qx (m, k)
+// int8, sx (m,) f32; w (n, k) of w_dtype -> qw, sw likewise.  m or n may be
+// 0 (that operand is skipped); pointers 16-byte aligned.
+extern "C" int ptk_quantize_operands(const void* x, void* qx, void* sx,
+                                     long m, int x_dtype, const void* w,
+                                     void* qw, void* sw, long n, int w_dtype,
+                                     int k, void* stream) {
+  if ((m == 0 && n == 0) || k == 0) return (int)cudaGetLastError();
+  const RowSet xs{x, static_cast<int8_t*>(qx), static_cast<float*>(sx), m,
+                  1, 0};
+  const RowSet ws{w, static_cast<int8_t*>(qw), static_cast<float*>(sw), n,
+                  1, 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kF32) return launch_quant_w<float>(xs, ws, w_dtype, k, s);
+  if (x_dtype == kBF16) return launch_quant_w<bf16>(xs, ws, w_dtype, k, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // x: (n_rows, k) of in_dtype; q: (n_rows, k) int8; scale: (n_rows,) f32;
-// pointers 16-byte aligned.
+// pointers 16-byte aligned.  One operand on the same kernel.
 extern "C" int ptk_quantize_rows(const void* x, void* q, void* scale,
                                  long n_rows, int k, int in_dtype,
                                  void* stream) {
-  if (n_rows == 0 || k == 0) return (int)cudaGetLastError();
-  int8_t* qp = static_cast<int8_t*>(q);
-  float* sp = static_cast<float*>(scale);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == ptk::kF32) return launch_quant<float>(x, qp, sp, n_rows, k, s);
-  if (in_dtype == ptk::kBF16) return launch_quant<bf16>(x, qp, sp, n_rows, k, s);
-  return (int)cudaErrorInvalidValue;
+  return ptk_quantize_operands(x, q, scale, n_rows, in_dtype, nullptr,
+                               nullptr, nullptr, 0, kF32, k, stream);
 }
 
 // a: (m, k) int8; b: (n, k) int8; sx: (m,), sw: (n,), bias: (n,) f32 or
@@ -363,22 +597,24 @@ extern "C" int ptk_int8_dense(const void* a, const void* b, const void* sx,
                               int m, int n, int k, int out_dtype,
                               void* stream) {
   if (m == 0 || n == 0) return (int)cudaGetLastError();
-  if (k <= 0 || k % 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kBN - 1) / kBN),
-                  (unsigned)((m + kBM - 1) / kBM));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* ap = static_cast<const int8_t*>(a);
-  const auto* bp = static_cast<const int8_t*>(b);
-  const auto* sxp = static_cast<const float*>(sx);
-  const auto* swp = static_cast<const float*>(sw);
-  const auto* biasp = static_cast<const float*>(bias);
-  if (out_dtype == ptk::kF32)
-    int8_dense_kernel<float><<<grid, kThreads, 0, s>>>(
-        ap, bp, sxp, swp, biasp, static_cast<float*>(out), m, n, k);
-  else if (out_dtype == ptk::kBF16)
-    int8_dense_kernel<bf16><<<grid, kThreads, 0, s>>>(
-        ap, bp, sxp, swp, biasp, static_cast<bf16*>(out), m, n, k);
-  else
+  if (k <= 0 || k % 16 || (out_dtype != kF32 && out_dtype != kBF16))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap am, bm;
+  if (!tensor_map(&am, enc, a, m, k, kBM, kBK, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !tensor_map(&bm, enc, b, n, k, kBN, kBK, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_DATA_TYPE_UINT8))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_n = (n + kBN - 1) / kBN;
+  const long tiles = (long)((m + kBM - 1) / kBM) * tiles_n;
+  if (tiles >= (1L << 31)) return (int)cudaErrorInvalidValue;
+  const DenseArgs args{static_cast<const float*>(sx),
+                       static_cast<const float*>(sw),
+                       static_cast<const float*>(bias), out, m, n, k,
+                       tiles_n, (int)tiles};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_dtype == kF32 ? launch_dense<float>(am, bm, args, s)
+                           : launch_dense<bf16>(am, bm, args, s);
 }

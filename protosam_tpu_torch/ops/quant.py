@@ -1,6 +1,7 @@
 """Dynamic W8A8 int8 dense layers for the encoders' dense stages: the
 counterpart of ``protosam_tpu/ops/quant.py``, on kernels K8
-``quantize_rows`` and K9 ``int8_dense`` (``csrc/int8_dense.cu``).
+``quantize_rows`` (both operands of a layer in one launch:
+``quantize_operands``) and K9 ``int8_dense`` (``csrc/int8_dense.cu``).
 
 Symmetric dynamic quantization with no calibration state: a scale per
 token of the activations and per output channel of the weight, int32
@@ -60,6 +61,33 @@ def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 quantize_rows.launches = 0
+
+
+def quantize_operands(x2: torch.Tensor, w: torch.Tensor) -> tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both operands of a layer, each row quantized as ``quantize_rows``
+    does: the activation rows x2 (M, K) and the weight rows w (N, K), each
+    bf16 or f32 -> (qx, sx, qw, sw).  One launch of K8 on CUDA tensors
+    (counted in ``quantize_rows.launches``), the plain version of each on
+    CPU tensors."""
+    if x2.device.type == "cpu":
+        return (*quantize_rows_plain(x2), *quantize_rows_plain(w))
+    m, k = x2.shape
+    n = w.shape[0]
+    if w.shape != (n, k):
+        raise ValueError(f"quantize_operands: x2 {tuple(x2.shape)} and w "
+                         f"{tuple(w.shape)} differ in K")
+    qx = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    qw = torch.empty((n, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x2.device)
+    sw = torch.empty((n,), dtype=torch.float32, device=x2.device)
+    dev = kernels.check_cuda("quantize_operands", x2, w, qx, sx, qw, sw)
+    kernels.launch("ptk_quantize_operands", x2.data_ptr(), qx.data_ptr(),
+                   sx.data_ptr(), m, kernels.dtype_code(x2), w.data_ptr(),
+                   qw.data_ptr(), sw.data_ptr(), n, kernels.dtype_code(w), k,
+                   device=dev)
+    quantize_rows.launches += 1
+    return qx, sx, qw, sw
 
 
 def int8_product_plain(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
@@ -135,12 +163,12 @@ def int8_dense(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor | None,
                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``x @ weightᵀ + bias`` through the int8 path: x (..., K), weight
-    (N, K) in ``nn.Linear``'s layout, bias (N,) or None.  Two K8 launches
-    (activations, weight) and one K9 on the card; the weight's codes are
-    recomputed on every call, as JAX does."""
+    (N, K) in ``nn.Linear``'s layout, bias (N,) or None.  One K8 launch
+    (activations and weight) and one K9 on the card; the weight's codes
+    are recomputed on every call, as JAX does."""
     k = x.shape[-1]
-    qx, sx = quantize_rows(x.reshape(-1, k).contiguous())
-    qw, sw = quantize_rows(weight.contiguous())
+    qx, sx, qw, sw = quantize_operands(x.reshape(-1, k).contiguous(),
+                                       weight.contiguous())
     y = int8_matmul_dequant(qx, qw, sx, sw, bias, out_dtype)
     return y.reshape(*x.shape[:-1], weight.shape[0])
 

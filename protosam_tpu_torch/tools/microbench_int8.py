@@ -11,8 +11,8 @@ Times M = 32768, K = 1280, N = 5120 (the vit_h lin1 of 8 slices) as
 - ``K9``: kernel K9 ``int8_dense`` on the same codes and scales, the
   dequant and the cast in its epilogue;
 - ``K8 + K9``: ``ops.quant.int8_dense`` from the bf16 activations and the
-  f32 weight, as a ``QuantLinear`` layer runs it (two K8 launches and one
-  K9), with a bias.
+  f32 weight, as a ``QuantLinear`` layer runs it (one K8 launch for both
+  operands and one K9), with a bias.
 
 The inputs follow the JAX tool's recipe, drawn from ``default_rng(0)`` in
 its order; the weights are drawn (K, N) as there and transposed once,

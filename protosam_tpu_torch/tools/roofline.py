@@ -153,6 +153,13 @@ def _quantize_rows(rows, k, itemsize=2):
     return 4 * rows * k, rows * k * (itemsize + 1) + 4 * rows, PEAK_F32
 
 
+def _quantize_operands(m, n, k, x_itemsize=2, w_itemsize=4):
+    # K8 on both operands of a layer in one launch: each row set as above
+    fx, bx, _ = _quantize_rows(m, k, x_itemsize)
+    fw, bw, _ = _quantize_rows(n, k, w_itemsize)
+    return fx + fw, bx + bw, PEAK_F32
+
+
 def _int8_dense(m, k, n, out_itemsize=2, bias=True):
     # the int8 product on the tensor cores; the codes, both scales and the
     # bias in, the dequantized output out
@@ -170,6 +177,7 @@ _COSTS = {
     "dense_residual": _dense_residual,
     "mlp_fused": _mlp_fused,
     "quantize_rows": _quantize_rows,
+    "quantize_operands": _quantize_operands,
     "int8_dense": _int8_dense,
 }
 
@@ -205,9 +213,11 @@ MAIN_PATH_SHAPES = {
     "K5 P = 577": ("alp_match", dict(n=4, c=1024, hw=2304, p=577)),
     "K6 ViT-H proj": ("dense_residual", dict(m=2 * 4096, k=1280, n=1280)),
     "K7 ViT-H MLP": ("mlp_fused", dict(m=2 * 4096, c=1280, h=5120)),
-    # the int8 flagship's dense stages at slice_batch 4: DINOv2-L fc2
-    # (4 x 2432 padded tokens, 4096 -> 1024) and SAM ViT-B qkv (4 x 4096
-    # tokens, 768 -> 2304); K8 on the bf16 activations and the f32 weight
+    # the int8 flagship's dense stages at slice_batch 4: DINOv2-L (4 x 2432
+    # padded tokens; qkv 1024 -> 3072, fc1 1024 -> 4096, fc2 4096 -> 1024)
+    # and SAM ViT-B (4 x 4096 tokens; qkv 768 -> 2304, fc2 3072 -> 768); K8
+    # on the bf16 activations and the f32 weight, apart and in the one
+    # launch a layer makes
     "K8 DINOv2-L fc2 rows": ("quantize_rows",
                              dict(rows=4 * 2432, k=4096, itemsize=2)),
     "K8 DINOv2-L fc2 weight": ("quantize_rows",
@@ -217,10 +227,15 @@ MAIN_PATH_SHAPES = {
     "K8 SAM-B qkv weight": ("quantize_rows",
                             dict(rows=2304, k=768, itemsize=4)),
     "K8 ragged": ("quantize_rows", dict(rows=9221, k=1040, itemsize=2)),
+    "K8 DINOv2-L fc2 operands": ("quantize_operands",
+                                 dict(m=4 * 2432, n=1024, k=4096)),
     "K9 DINOv2-L fc2": ("int8_dense", dict(m=4 * 2432, k=4096, n=1024)),
+    "K9 DINOv2-L qkv": ("int8_dense", dict(m=4 * 2432, k=1024, n=3072)),
+    "K9 DINOv2-L fc1": ("int8_dense", dict(m=4 * 2432, k=1024, n=4096)),
     "K9 SAM-B qkv": ("int8_dense", dict(m=4 * 4096, k=768, n=2304)),
-    # ragged: M and N not multiples of the 128 x 128 tile, K ends inside
-    # a 64-byte step
+    "K9 SAM-B fc2": ("int8_dense", dict(m=4 * 4096, k=3072, n=768)),
+    # ragged: M and N not multiples of the 128 x 256 tile, K ends inside
+    # a 128-byte stage
     "K9 ragged": ("int8_dense", dict(m=9221, k=1040, n=1000)),
 }
 

@@ -81,6 +81,11 @@ def _k8(on):
     return quant.quantize_rows(on(_inputs(torch.bfloat16)(8, 32)))[0]
 
 
+def _k8_operands(on):
+    return quant.quantize_operands(on(_inputs(torch.bfloat16)(8, 32)),
+                                   on(_inputs()(5, 32)))[2]
+
+
 def _k9(on):
     codes = torch.ones(4, 32, dtype=torch.int8)
     r = _inputs()
@@ -96,6 +101,7 @@ WRAPPERS = {"K1": (_k1, "ptk_layer_norm_rows"),
             "K6": (_k6, "ptk_dense_residual"),
             "K7": (_k7, "ptk_mlp_fused"),
             "K8": (_k8, "ptk_quantize_rows"),
+            "K8 operands": (_k8_operands, "ptk_quantize_operands"),
             "K9": (_k9, "ptk_int8_dense")}
 
 
@@ -146,6 +152,22 @@ def test_wrapper_launches_on_its_tensors_device(kernel, recorder):
     run(lambda t: t.as_subclass(OnCard))
     assert calls == [(entry, [CARD], STREAM)]
     assert streams == [CARD]
+
+
+def test_int8_dense_launches_one_k8_and_one_k9(recorder):
+    """An int8 layer on the card quantizes both operands in one K8 launch
+    (the activations' and the weight's types and shapes passed through),
+    then runs one K9."""
+    calls, _, args = recorder
+    x = _inputs(torch.bfloat16)(2, 3, 32).as_subclass(OnCard)
+    w = _inputs()(5, 32).as_subclass(OnCard)
+    y = quant.int8_dense(x, w, None, torch.bfloat16)
+    assert [c[0] for c in calls] == ["ptk_quantize_operands",
+                                     "ptk_int8_dense"]
+    _, _, _, m, x_dtype, _, _, _, n, w_dtype, k, _ = args[0]
+    assert (m, n, k) == (6, 5, 32)
+    assert (x_dtype, w_dtype) == (kernels.BF16, kernels.F32)
+    assert y.shape == (2, 3, 5)
 
 
 def _k7_args(residual=True):

@@ -27,7 +27,8 @@ the port's encoder, to JAX ``int8_dense`` with the f32 params and a bf16
 output, to one ulp: that is where a wiring fault (weights rounded to bf16
 before quantizing, an output in the wrong type) shows.  One of them runs
 SAM ViT-B's width at 1024² (two blocks), the flagship's geometry.  The
-``cuda`` tests hold K8 and K9 bit-equal to the plain versions on the card."""
+``cuda`` tests hold K8 (one operand, and both in one launch) and K9
+bit-equal to the plain versions on the card."""
 
 import copy
 
@@ -96,8 +97,9 @@ def seeded_state_dict(module, seed):
 
 def rows_with_edge_cases(n, k, seed):
     """Rows at scales 1e-3..1e2, a zero row, a row of exact .5 ties (amax
-    127, so the scale is 1 and x / scale is x), and a row below the 1e-12
-    clamp."""
+    127, so the scale is 1 and x / scale is x), a row below the 1e-12
+    clamp, and (n > 4) a row whose quotients x / scale lie within three
+    f32 ulps of a .5 tie at a scale whose reciprocal is inexact."""
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((n, k))
          * 10.0 ** rng.uniform(-3, 2, (n, 1))).astype(np.float32)
@@ -108,6 +110,14 @@ def rows_with_edge_cases(n, k, seed):
     x[2, 1:1 + len(ties)] = ties
     x[2, 1 + len(ties):1 + 2 * len(ties)] = -ties
     x[3] = 1e-14
+    if n > 4:
+        amax = np.float32(88.9)
+        scale = amax / np.float32(127.0)
+        j = np.arange(k - 1)
+        near = (j % 126 + 0.5).astype(np.float32) * scale
+        near = near + (j % 7 - 3).astype(np.float32) * np.spacing(near)
+        x[4, 0] = amax
+        x[4, 1:] = np.where(j % 2, -near, near)
     return x
 
 
@@ -127,17 +137,33 @@ def assert_within_int8_sensitivity(port, x, want, want_f32):
     assert gap <= 0.5 * rel_l2(want, want_f32), (gap, want_f32)
 
 
+@pytest.mark.parametrize("entry", ["symmetric", "operands"])
 @pytest.mark.parametrize("k", [160, 768])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_quantize_matches_jax(dtype, k):
+def test_quantize_matches_jax(dtype, k, entry):
+    """``quantize_symmetric`` over the last axis; and ``quantize_operands``
+    on the same activation rows with an f32 weight (N, K), whose JAX side
+    is the (K, N) kernel quantized over axis 0, as JAX ``int8_dense``
+    quantizes it."""
     x = rows_with_edge_cases(37, k, seed=k)
     tx, jx = torch.from_numpy(x), jnp.asarray(x)
     if dtype == "bf16":
         tx, jx = tx.bfloat16(), jx.astype(jnp.bfloat16)
-    q, scale = quant.quantize_symmetric(tx)
     jq, jscale = jquant.quantize_symmetric(jx, axis=-1)
+    if entry == "symmetric":
+        q, scale = quant.quantize_symmetric(tx)
+        assert scale.shape == (37, 1)
+    else:
+        w = rows_with_edge_cases(29, k, seed=k + 1)
+        q, scale, qw, sw = quant.quantize_operands(tx, torch.from_numpy(w))
+        jqw, jsw = jquant.quantize_symmetric(jnp.asarray(w.T), axis=0)
+        np.testing.assert_array_equal(qw.numpy(), np.asarray(jqw).T)
+        assert scale.shape == (37,) and sw.shape == (29,)
+        np.testing.assert_array_equal(sw.numpy().view(np.int32),
+                                      np.asarray(jsw)[0].view(np.int32))
+        assert qw[2, 1:5].tolist() == [0, 2, 2, 4] and not qw[1].any()
+        scale = scale[:, None]
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
-    assert scale.shape == (37, 1)
     np.testing.assert_array_equal(scale.numpy().view(np.int32),
                                   np.asarray(jscale).view(np.int32))
     # the ties round half to even, and the zero row gives codes 0
@@ -574,8 +600,9 @@ def test_build_models_with_quant_dense():
                                     (40, 4096), (33, 5120), (7, 100)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_quantize_rows_kernel_matches_plain(cuda, rows, k, dtype):
-    """K8 against its plain version, bit for bit: register-held rows and
-    the loop kernel (f32 K >= 3072, K = 100), edge-case rows included."""
+    """K8 against its plain version, bit for bit: rows held in registers by
+    one to eight warps, and the loop kernel (bf16 K = 100, not whole
+    16-byte vectors), edge-case rows included."""
     x = torch.from_numpy(rows_with_edge_cases(max(rows, 4), k, seed=rows)
                          [:rows].copy()).to(cuda, dtype)
     q, s = quant.quantize_rows(x)
@@ -587,15 +614,53 @@ def test_quantize_rows_kernel_matches_plain(cuda, rows, k, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(1, 1, 16), (100, 136, 160),
-                                   (129, 127, 48), (300, 2304, 768),
-                                   (4864, 1024, 4096), (8200, 3840, 1280),
-                                   (33, 5120, 1280), (257, 1280, 5120)])
+@pytest.mark.parametrize("m,n,k", [(4864, 1024, 4096), (300, 768, 3072),
+                                   (129, 1280, 5120), (37, 96, 160),
+                                   (2432, 3072, 1024), (9, 7, 100)])
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_quantize_operands_kernel_matches_plain(cuda, m, n, k, x_dtype,
+                                                w_dtype):
+    """K8's one launch a layer against the plain version of each operand,
+    bit for bit: activation rows with weight rows (f32 as ``QuantLinear``
+    keeps them) of K = 3072, 4096 and 5120 (which took the loop kernel
+    before), a zero row, rows of exact .5 ties and of near ties in both
+    operands; one launch, counted; a rerun gives the same bits."""
+    x = torch.from_numpy(rows_with_edge_cases(max(m, 4), k, seed=m)[:m]
+                         .copy()).to(cuda, x_dtype)
+    w = torch.from_numpy(rows_with_edge_cases(max(n, 4), k, seed=n + 1)[:n]
+                         .copy()).to(cuda, w_dtype)
+    before = quant.quantize_rows.launches
+    got = quant.quantize_operands(x, w)
+    assert quant.quantize_rows.launches == before + 1
+    want = (*quant.quantize_rows_plain(x), *quant.quantize_rows_plain(w))
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    for g, wt in zip(got, want):
+        assert g.shape == wt.shape and torch.equal(bits(g), bits(wt))
+    again = quant.quantize_operands(x, w)
+    assert all(torch.equal(bits(a), bits(g)) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [
+    (1, 1, 16), (100, 136, 160), (129, 127, 48), (300, 2304, 768),
+    (4864, 1024, 4096), (8200, 3840, 1280), (33, 5120, 1280),
+    (257, 1280, 5120),
+    # DINOv2-L's qkv, proj, fc1 and fc2 at 4 x 2432 tokens
+    (9728, 3072, 1024), (9728, 1024, 1024), (9728, 4096, 1024),
+    (9728, 1024, 4096),
+    # SAM ViT-B's at 4 x 4900 windowed tokens, and qkv at 4 x 4096 global
+    (19600, 2304, 768), (19600, 768, 768), (19600, 3072, 768),
+    (19600, 768, 3072), (16384, 2304, 768),
+    # fewer tiles than SMs; K in one partial stage, odd N
+    (256, 512, 1024), (77, 301, 16), (1000, 999, 48)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_dense_kernel_matches_plain(cuda, m, n, k, out_dtype):
-    """K9 against its plain version, bit for bit, at ragged M and N, odd
-    N, K steps that end inside a tile, with and without a bias; a rerun
-    gives the same bits."""
+    """K9 against its plain version, bit for bit, at every dense layer of
+    both int8 encoders, at one tile wave and at many, at ragged M and N, odd
+    N, K that ends inside a stage, with and without a bias; a rerun gives
+    the same bits."""
     g = torch.Generator().manual_seed(m * 7 + n)
     qa = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
     qb = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
@@ -624,8 +689,9 @@ def test_int8_dense_kernel_refuses_k_not_a_multiple_of_16(cuda):
 
 @pytest.mark.cuda
 def test_int8_dense_on_card_matches_cpu(cuda):
-    """``int8_dense`` end to end (two K8, one K9) on the card equals the
-    CPU's plain route bit for bit, padding rows included."""
+    """``int8_dense`` end to end (one K8 launch for both operands, one
+    K9) on the card equals the CPU's plain route bit for bit, padding rows
+    included."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rows_with_edge_cases(2432 + 64, 1024, seed=5))
     x[2305:] = 0.0
@@ -634,7 +700,9 @@ def test_int8_dense_on_card_matches_cpu(cuda):
     b = torch.from_numpy(rng.standard_normal(3072).astype(np.float32))
     for dt in (torch.bfloat16, torch.float32):
         before = quant.int8_matmul_dequant.launches
+        before_k8 = quant.quantize_rows.launches
         got = quant.int8_dense(x.to(cuda, dt), w.to(cuda), b.to(cuda), dt)
         want = quant.int8_dense(x.to(dt), w, b, dt)
         assert quant.int8_matmul_dequant.launches == before + 1
+        assert quant.quantize_rows.launches == before_k8 + 1
         assert torch.equal(got.cpu(), want)

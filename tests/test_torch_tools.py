@@ -38,7 +38,8 @@ from protosam_tpu_torch.ops.vitdet_flash import relpos_patch_attention_plain
 from protosam_tpu_torch.pipeline.protosam import ProtoSAMConfig
 from protosam_tpu_torch.tools import (bench_attn, bench_cca, bench_fc2,
                                       microbench_attn, pipeline_profile,
-                                      ptxas_report, roofline, trace_volume)
+                                      ptxas_report, roofline, stamp_int8,
+                                      trace_volume)
 from protosam_tpu_torch.utils.profiling import StageTimer
 from protosam_tpu_torch.utils.synthetic import (smooth_volume,
                                                 synthetic_episode)
@@ -51,7 +52,7 @@ TOOLS = ("bench_fc2", "microbench_attn", "bench_attn", "bench_dino_flash",
          "bench_cca", "bench_mlp_kernel", "bench_dino_encoder",
          "bench_sam_encoder", "pipeline_profile", "trace_volume",
          "roofline", "ptxas_report", "microbench_int8",
-         "measure_int8_drift")
+         "measure_int8_drift", "stamp_int8")
 
 
 @functools.cache
@@ -288,6 +289,10 @@ _HAND = {
            67e12),
     "K8": ("quantize_rows", dict(rows=9728, k=4096, itemsize=2),
            4 * 9728 * 4096, 9728 * 4096 * (2 + 1) + 4 * 9728, 67e12),
+    "K8 operands": ("quantize_operands", dict(m=9728, n=1024, k=4096),
+                    4 * (9728 + 1024) * 4096,
+                    9728 * 4096 * (2 + 1) + 4 * 9728
+                    + 1024 * 4096 * (4 + 1) + 4 * 1024, 67e12),
     "K9": ("int8_dense", dict(m=9728, k=4096, n=1024),
            2 * 9728 * 4096 * 1024,
            (9728 + 1024) * 4096 + 4 * (9728 + 2 * 1024) + 9728 * 1024 * 2,
@@ -299,7 +304,8 @@ _BOUNDS = {"K7": (0.217, "operations"), "K6": (0.027, "operations"),
            "K4 window": (0.033, "bytes"), "K5": (0.163, "operations"),
            "K1": (0.006, "bytes"), "row13": (0.52, "operations"),
            "row14": (0.186, "operations"), "K3": (0.008, "bytes"),
-           "K8": (0.036, "bytes"), "K9": (0.041, "operations")}
+           "K8": (0.036, "bytes"), "K8 operands": (0.042, "bytes"),
+           "K9": (0.041, "operations")}
 
 
 @pytest.mark.parametrize("case", list(_HAND))
@@ -310,6 +316,23 @@ def test_kernel_cost_hand_values(case):
     assert got[:2] == (flops, nbytes)
     assert got[2] == pytest.approx(ms, rel=1e-12) and got[3] == by
     assert (round(got[2], 3 if got[2] < 0.5 else 2), got[3]) == _BOUNDS[case]
+
+
+@pytest.mark.parametrize("variant", [f"k9 {v}" for v in
+                                     stamp_int8.K9_VARIANTS]
+                         + [f"k8 {v}" for v in stamp_int8.K8_VARIANTS])
+def test_stamp_int8_variants_patch_the_kernel_source(variant):
+    """Every ablation of ``stamp_int8`` finds what it patches in
+    ``csrc/int8_dense.cu`` (K9's also its stamps) and changes the source,
+    apart from the kernel as built."""
+    kind, name = variant.split()
+    src = stamp_int8.SOURCE.read_text()
+    if kind == "k9":
+        got = stamp_int8.stamped(stamp_int8.K9_VARIANTS[name](src))
+        assert got.count("clock64()") == 5 and "ptk_zero_stamps" in got
+    else:
+        got = stamp_int8.K8_VARIANTS[name](src)
+    assert (got == src) == (variant == "k8 built")
 
 
 # ---------------------------------------------------- timing and traces
