@@ -52,7 +52,19 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ``bench_fc2`` (K6 at the ViT-H fc2 geometry, row 13 of the kernel
    table) and ``microbench_attn`` (K2 and its bf16-score variant, row 14)
    must launch their kernels; ``trace_volume`` on the flagship prints the
-   device idle share and the top five kernels.
+   device idle share and the top five kernels;
+7. eval: the evaluation entry point on a CHAOS-T2-like NIfTI fold (20
+   scans of 30 x 256² slices) written with the port's ``write_nii``, with
+   ``run_protosam.sh mri``'s settings (DINOv2-L/14 at 672, bf16): 7a
+   ProtoSAM with SAM ViT-B and 7b ProtoMedSAM, each ``run_eval`` built in
+   memory from the seed and from ``.pth`` snapshots of the same weights
+   (an ALPNet snapshot and a SAM ViT-B state_dict), whose masks must be
+   bit-equal, with K1-K4 launched in every run; 7a's ``per_slice`` mode
+   must agree with ``volume`` (metrics within 1e-3, mask Dice >= 0.99);
+   ``run_eval``'s slices/s is printed beside ``forward_volume``'s
+   ms/slice; 7c holds the rotate / reverse ops (1e-5) and the tiny
+   pipeline's ``forward(degrees_rotate=15)`` (Dice >= 0.99, scores 1e-4)
+   on the card to the CPU.
 
 Then one JSON line with the kernels' numbers (each with its bound from
 ``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
@@ -814,7 +826,7 @@ def _numbers(row: dict) -> dict:
 
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, int8_launches: dict,
-                  tools: dict) -> dict:
+                  tools: dict, eval_launches: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
@@ -824,7 +836,9 @@ def kernel_report(checks: list[dict], launches: dict,
     shape's numbers under ``per_shape``).  ``launches`` counts the ViT-H path
     (phase 5), which runs K1-K7, for K1-K7 and the int8 flagship (phase
     4b) for K8 and K9; ``flagship_launches`` the ViT-B flagship (phase 4),
-    ``flagship_int8_launches`` the int8 flagship.  Rows 13 and 14 of
+    ``flagship_int8_launches`` the int8 flagship, ``eval_launches``
+    ``run_eval`` of phase 7a (``volume``, from the ``.pth`` build).  Rows
+    13 and 14 of
     the kernel table take their times from the tools' own runs (phase 6),
     at the tools' shapes, and their launches from those runs.  K2 carries
     its ``check_mask`` result; its f32 and bf16-score instantiations live
@@ -840,6 +854,7 @@ def kernel_report(checks: list[dict], launches: dict,
                  "replaces": replaces, "launches": path[name],
                  "flagship_launches": flagship_launches.get(name, 0),
                  "flagship_int8_launches": int8_launches.get(name, 0),
+                 "eval_launches": eval_launches.get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -952,6 +967,264 @@ def phase_tools(counters: dict) -> dict:
             "microbench_attn": attn, "attn_launches": attn_launches}
 
 
+# the eval fold of phase 7: CHAOS-T2's shape (its _SEP needs 20 scan ids;
+# 256² slices, ~30 a scan), four ellipsoid organs (labels 1-4: liver, right
+# kidney, left kidney, spleen) over the middle two-thirds of the slices
+FOLD_SCANS, FOLD_Z, FOLD_HW = 20, 30, 256
+FOLD_ORGANS = {1: (96, 80), 2: (160, 176), 3: (80, 176), 4: (176, 80)}
+FOLD_NAMES = ["BG", "LIVER", "RK", "LK", "SPLEEN"]
+
+
+def write_fold(base_dir: str, seed: int = 0) -> str:
+    """The synthetic CHAOS-T2 fold (the recipe of the tests' synthetic
+    dataset at this size), written with the port's ``write_nii``: image and
+    label volumes and the classmaps the data layer reads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from protosam_tpu_torch.data.nifti import NiftiImage, write_nii
+
+    zz, yy, xx = np.mgrid[:FOLD_Z, :FOLD_HW, :FOLD_HW].astype(np.float32)
+    cz, rz = (FOLD_Z - 1) / 2.0, FOLD_Z / 3.0
+
+    def scan(i: int) -> dict:
+        rng = np.random.default_rng(seed + i)
+        img = rng.normal(100, 20, (FOLD_Z, FOLD_HW, FOLD_HW)).astype(
+            np.float32)
+        lbl = np.zeros((FOLD_Z, FOLD_HW, FOLD_HW), np.int16)
+        for cls, (cy, cx) in FOLD_ORGANS.items():
+            r = 4.0 * (7 + (i + cls) % 3)
+            blob = (((yy - cy) / r) ** 2 + ((xx - cx) / r) ** 2
+                    + ((zz - cz) / rz) ** 2) <= 1.0
+            lbl[blob] = cls
+            img[blob] += 80 + 10 * cls
+        write_nii(NiftiImage(img, (1.5, 1.5, 5.0)),
+                  f"{base_dir}/image_{i}.nii.gz")
+        write_nii(NiftiImage(lbl, (1.5, 1.5, 5.0)),
+                  f"{base_dir}/label_{i}.nii.gz")
+        zs = {FOLD_NAMES[c]: sorted(int(z) for z in
+                                    np.unique(np.where(lbl == c)[0]))
+              for c in FOLD_ORGANS}
+        zs["BG"] = list(range(FOLD_Z))
+        return zs
+
+    with ThreadPoolExecutor(8) as ex:
+        per_scan = list(ex.map(scan, range(1, FOLD_SCANS + 1)))
+    classmap = {name: {str(i + 1): zs[name] for i, zs in enumerate(per_scan)}
+                for name in FOLD_NAMES}
+    for fname in ("classmap_1.json", "classmap_100.json"):
+        with open(os.path.join(base_dir, fname), "w") as f:
+            json.dump(classmap, f)
+    return base_dir
+
+
+def eval_config(fold: str, sam_ver: str, log_dir: str = "", **extra):
+    """``run_protosam.sh mri``'s settings (DINOv2-L/14 at 672, CHAOST2 fold
+    0, right kidney, support scan 4, cca, organ slices only, seed 42) with
+    ``protosam_sam_ver`` given; bf16, ``slice_batch`` 4; ``extra`` as
+    further ``key=value`` overrides."""
+    from protosam_tpu_torch.utils.config import load_config
+
+    argv = ["with", "modelname=dinov2_l14", "base_model=alpnet",
+            "coarse_pred_only=False", f"protosam_sam_ver={sam_ver}",
+            "curr_cls=rk", "eval_fold=0", "dataset=CHAOST2_Superpix_672",
+            "proto_grid_size=8", "seed=42", "do_cca=True",
+            "skip_no_organ_slices=True", "lora=0", "support_idx=[4]",
+            "input_size=(672, 672)", f"path.CHAOST2_672.data_dir={fold}",
+            "dtype=bfloat16", "slice_batch=4"]
+    argv += [f"{k}={v}" for k, v in extra.items()]
+    cfg = load_config(argv)
+    cfg.log_dir = log_dir
+    return cfg
+
+
+def save_snapshots(cfg, tmp: str) -> tuple[str, str]:
+    """The seeded weights ``build_models(cfg)`` makes (the coarse model from
+    ``cfg.seed``, SAM from ``cfg.seed + 1``), f32, as reference ``.pth``
+    files: an ALPNet snapshot (``encoder.``-prefixed DINOv2-L/14 keys) and
+    a SAM ViT-B state_dict, which MedSAM reuses."""
+    from protosam_tpu_torch.eval.protosam_eval import (SAM_IMAGE_SIZE,
+                                                       SAM_VERSIONS)
+    from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
+    from protosam_tpu_torch.models.sam.registry import build_sam
+    from protosam_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    with torch.device("meta"):
+        coarse = FewShotSeg(image_size=cfg.input_size[0],
+                            which_model=cfg.modelname,
+                            proto_grid_size=cfg.proto_grid_size)
+        sam = build_sam(SAM_VERSIONS[cfg.protosam_sam_ver],
+                        image_size=SAM_IMAGE_SIZE)
+    paths = (f"{tmp}/alpnet_dinov2_l14.pth", f"{tmp}/sam_vit_b.pth")
+    torch.save(synthetic_state_dict(coarse, cfg.seed), paths[0])
+    torch.save(synthetic_state_dict(sam, cfg.seed + 1), paths[1])
+    return paths
+
+
+def counted_eval(tag: str, cfg, pipe, counters: dict, mode: str = "volume"
+                 ) -> tuple[dict, np.ndarray]:
+    """``run_eval`` with the counts zeroed just before and read just after;
+    K1-K4 must have launched.  The masks are taken from the pipeline's own
+    calls as they return."""
+    from protosam_tpu_torch.eval.protosam_eval import run_eval
+
+    name = "forward_volume" if mode == "volume" else "forward"
+    fn, masks = getattr(pipe, name), []
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        masks.append(out[0].cpu().numpy())
+        return out
+
+    setattr(pipe, name, recorded)
+    zero_counts(counters)
+    try:
+        result = run_eval(cfg, pipe=pipe, mode=mode, profile=True)
+    finally:
+        delattr(pipe, name)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    masks = np.concatenate(masks) if mode == "volume" else np.stack(masks)
+    result["launches"] = launches
+    log(f"{tag}: {result['n_slices']} slices, meanDice "
+        f"{result['mar_val_batches_meanDice']:.5f}, "
+        f"{result['slices_per_sec']:.2f} slices/s; kernel launches "
+        f"{launches}")
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched in run_eval: "
+                             f"{missing}")
+    if masks.shape != (result["n_slices"], *cfg.input_size):
+        raise AssertionError(f"{tag}: masks {masks.shape}")
+    return result, masks
+
+
+def _metrics(result: dict) -> dict:
+    return {k: v for k, v in result.items()
+            if k not in ("slices_per_sec", "stage_timings", "launches")}
+
+
+def phase_eval(counters: dict, smi: str) -> dict:
+    """The eval entry point on a NIfTI fold written here: ``run_eval`` for
+    ProtoSAM (7a) and ProtoMedSAM (7b) built in memory and from ``.pth``
+    files of the same seeded weights, then rotation TTA (7c).  Returns the
+    launch counts of 7a's ``.pth`` run in ``volume`` mode."""
+    import os
+    import tempfile
+
+    from protosam_tpu_torch.eval.protosam_eval import build_models
+    from protosam_tpu_torch.utils.convert import load_sam_pth
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fold = os.path.join(tmp, "chaos")
+        os.makedirs(fold)
+        write_fold(fold)
+        cfg = eval_config(fold, "sam_b")
+        alpnet_pth, sam_pth = save_snapshots(cfg, tmp)
+        log(f"phase 7 eval: wrote a {FOLD_SCANS}-scan fold of {FOLD_Z} x "
+            f"{FOLD_HW}² slices and the .pth snapshots in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for tag, sam_ver in (("7a ProtoSAM", "sam_b"),
+                             ("7b ProtoMedSAM", "medsam")):
+            mem_cfg = eval_config(fold, sam_ver,
+                                  log_dir=os.path.join(tmp, "log"))
+            pipe = build_models(mem_cfg)
+            mem, mem_masks = counted_eval(f"phase {tag} in memory", mem_cfg,
+                                          pipe, counters)
+            del pipe
+            if not os.path.exists(os.path.join(tmp, "log",
+                                               "protosam_eval_result.json")):
+                raise AssertionError("run_eval wrote no result to log_dir")
+            pth_cfg = eval_config(fold, sam_ver,
+                                  reload_model_path=alpnet_pth)
+            pipe = build_models(pth_cfg, sam_state=load_sam_pth(sam_pth))
+            pth, pth_masks = counted_eval(f"phase {tag} from .pth", pth_cfg,
+                                          pipe, counters)
+            same = np.array_equal(pth_masks, mem_masks)
+            log(f"phase {tag}: .pth build vs in-memory build: masks "
+                f"bit-equal {same}, metrics equal "
+                f"{_metrics(pth) == _metrics(mem)}")
+            if not same or _metrics(pth) != _metrics(mem):
+                raise AssertionError(f"{tag}: the .pth build differs from "
+                                     f"the in-memory build")
+            vol_ms = (pth["stage_timings"]["volume_chunk"]["total_s"]
+                      / pth["n_slices"] * 1e3)
+            log(f"phase {tag} [{smi}]: run_eval {pth['slices_per_sec']:.2f} "
+                f"slices/s ({1e3 / pth['slices_per_sec']:.2f} ms/slice) "
+                f"beside forward_volume {vol_ms:.2f} ms/slice on the same "
+                f"{pth['n_slices']} slices")
+            if sam_ver == "sam_b":
+                eval_launches = pth["launches"]
+                slc, slc_masks = counted_eval(f"phase {tag} per_slice",
+                                              pth_cfg, pipe, counters,
+                                              mode="per_slice")
+                gaps = {k: abs(slc[k] - pth[k]) for k in (
+                    "mar_val_batches_meanDice", "mar_val_batches_meanPrec",
+                    "mar_val_al_batches_meanRec",
+                    "mar_val_al_batches_meanIOU")}
+                dices = [dice(torch.from_numpy(a), torch.from_numpy(b))
+                         for a, b in zip(slc_masks, pth_masks)]
+                mean = sum(dices) / len(dices)
+                log(f"phase {tag}: per_slice vs volume: metric gaps {gaps}, "
+                    f"mask Dice mean {mean:.5f} min {min(dices):.5f}")
+                if max(gaps.values()) > 1e-3 or mean < 0.99:
+                    raise AssertionError(f"{tag}: per_slice and volume "
+                                         f"disagree")
+            del pipe
+    phase_rotation()
+    log(f"phase 7 eval: {time.perf_counter() - t0:.1f} s in all")
+    return eval_launches
+
+
+def phase_rotation() -> None:
+    """7c: rotation TTA.  The rotate / reverse ops on the card against the
+    CPU (1e-5), then ``forward(degrees_rotate=15)`` of phase 3's tiny f32
+    pipeline on the card against the CPU (Dice >= 0.99, scores 1e-4)."""
+    from protosam_tpu_torch.entry import build_pipeline
+    from protosam_tpu_torch.ops.rotate import (reverse_tensor,
+                                               rotate_tensor_no_crop)
+    from protosam_tpu_torch.pipeline.protosam import ProtoSAMConfig
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
+
+    g = torch.Generator().manual_seed(11)
+    err = 0.0
+    for shape in ((2, 1, 64, 64), (1, 3, 63, 77), (1, 2, 672, 672)):
+        x = torch.randn(shape, generator=g)
+        for degrees in (15, -15, 30, 90):
+            rot, size = rotate_tensor_no_crop(x, degrees)
+            grot, gsize = rotate_tensor_no_crop(x.cuda(), degrees)
+            back = reverse_tensor(rot, *size, -degrees)
+            gback = reverse_tensor(grot, *gsize, -degrees)
+            if gsize != size or gback.shape != back.shape:
+                raise AssertionError("rotation shapes differ on the card")
+            err = max(err, (grot.cpu() - rot).abs().max().item(),
+                      (gback.cpu() - back).abs().max().item())
+    log(f"phase 7c rotation ops: card vs CPU max abs err {err:.2e}")
+    if err > 1e-5:
+        raise AssertionError(f"rotation ops: card vs CPU {err} > 1e-5")
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = build_pipeline(dev, sam_ver="vit_t", coarse="dinov2_t14",
+                              image_size=126, sam_size=256,
+                              dtype=torch.float32, seed=3,
+                              config=ProtoSAMConfig(image_size=(256, 256),
+                                                    max_ccs=4))
+        q = smooth_volume(1, 126, seed=4).to(dev)
+        pred, scores = pipe.forward(q, synthetic_episode(126, dev, 5),
+                                    degrees_rotate=15)
+        outs[dev] = (pred.cpu(), scores.cpu())
+    d = dice(outs["cuda"][0], outs["cpu"][0])
+    score_err = (outs["cuda"][1] - outs["cpu"][1]).abs().max().item()
+    log(f"phase 7c rotation TTA (15°): tiny pipeline card vs CPU Dice "
+        f"{d:.5f}, max score diff {score_err:.2e}, card fg share "
+        f"{outs['cuda'][0].mean().item():.4f}")
+    if d < 0.99 or score_err > 1e-4:
+        raise AssertionError("rotation TTA: card and CPU disagree")
+
+
 def main() -> int:
     from protosam_tpu_torch.ops.alp import alp_match_fused
     from protosam_tpu_torch.ops.attention import \
@@ -978,7 +1251,7 @@ def main() -> int:
         "bf16_scores": (masked_flash_attention_packed,
                         "bf16_score_launches"),
     }
-    phase_device()
+    smi = phase_device()
     phase_build()
     checks = phase_kernels()
     phase_wiring()
@@ -987,7 +1260,9 @@ def main() -> int:
     del bf16_preds
     launches = phase_vith(counters)
     tools = phase_tools(counters)
-    log(json.dumps(kernel_report(checks, launches, flagship, int8, tools)))
+    eval_launches = phase_eval(counters, smi)
+    log(json.dumps(kernel_report(checks, launches, flagship, int8, tools,
+                                 eval_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -39,11 +39,15 @@ def build_pipeline(device: torch.device | str, sam_ver: str = "vit_b",
                    config: ProtoSAMConfig | None = None,
                    seed: int = 0, proto_grid_size: int = 8,
                    use_fused_alp: bool = False, fused_mlp: bool = False,
-                   fused_proj: bool = False,
-                   quant_dense: bool = False) -> ProtoSAM:
+                   fused_proj: bool = False, quant_dense: bool = False,
+                   coarse_state: dict | None = None,
+                   sam_state: dict | None = None) -> ProtoSAM:
     """Both models built on the meta device, then allocated on ``device``
-    with role-aware synthetic weights; the two encoders cast to ``dtype``
-    (their norms keep f32 params), everything else stays f32.
+    with role-aware synthetic weights, or with ``coarse_state`` /
+    ``sam_state`` where given (reference-layout state_dicts, loaded
+    strictly: a missing or unexpected key raises and is named); the two
+    encoders cast to ``dtype`` (their norms keep f32 params), everything
+    else stays f32.
     ``use_fused_alp`` puts the ALP matching on kernel K5, ``fused_mlp`` /
     ``fused_proj`` the bf16 SAM encoder's MLP / projection on K7 / K6,
     ``quant_dense`` both encoders' dense stages on the int8 path (K8 and
@@ -56,9 +60,19 @@ def build_pipeline(device: torch.device | str, sam_ver: str = "vit_b",
                                   quant_dense=quant_dense)
         sam = build_sam(sam_ver, image_size=sam_size, fused_mlp=fused_mlp,
                         fused_proj=fused_proj, quant_dense=quant_dense)
-    materialize(coarse_model, device, seed)
-    materialize(sam, device, seed + 1)
+    _allocate(coarse_model, device, seed, coarse_state)
+    _allocate(sam, device, seed + 1, sam_state)
     cast_compute(coarse_model.encoder, dtype)
     cast_compute(sam.image_encoder, dtype)
     config = config or ProtoSAMConfig(image_size=(sam_size, sam_size))
     return ProtoSAM(coarse_model, sam, config)
+
+
+def _allocate(module: torch.nn.Module, device: torch.device | str,
+              seed: int, state_dict: dict | None) -> None:
+    if state_dict is None:
+        materialize(module, device, seed)
+        return
+    module.to_empty(device=device)
+    module.load_state_dict(state_dict)
+    module.eval()

@@ -27,6 +27,44 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     return y.reshape(*lead, *y.shape[-2:]).to(x.dtype)
 
 
+def _antialias_weights(in_size: int, out_size: int,
+                       device: torch.device) -> torch.Tensor:
+    """(out, in) matrix of the antialiased bilinear resize (PIL's triangle
+    filter, as ``F.interpolate(antialias=True)`` on the CPU and JAX's
+    ``jax.image.resize(method='linear', antialias=True)`` compute it):
+    output i centred on ``scale * (i + 0.5)``, ``scale = in / out``, the
+    triangle widened by ``scale`` on a downscale, each row normalised; in
+    f32, as torch's CPU kernel takes them, so that the card gives the CPU's
+    weights (torch's CUDA kernel rounds its centres otherwise: 1e-4 apart
+    at 800-pixel sides).  ``scale`` and its inverse are IEEE f32 quotients
+    taken on the host: CUDA divides a tensor by a scalar through the
+    scalar's reciprocal."""
+    f32 = dict(dtype=torch.float32, device=device)
+    scale = np.float32(in_size) / np.float32(out_size)
+    inv = float(np.float32(1.0) / scale) if in_size >= out_size else 1.0
+    center = (torch.arange(out_size, **f32) + 0.5) * float(scale)
+    j = torch.arange(in_size, **f32)
+    w = (1.0 - (((j[None] - center[:, None]) + 0.5) * inv).abs()).clamp(
+        min=0.0)
+    return w / w.sum(dim=1, keepdim=True)
+
+
+def resize_bilinear_antialias(x: torch.Tensor,
+                              size: tuple[int, int]) -> torch.Tensor:
+    """``F.interpolate(x, size, mode='bilinear', align_corners=False,
+    antialias=True)`` (JAX's ``jax.image.resize(method='linear',
+    antialias=True)``) as two weight-matrix products, computed in f32 and
+    cast back; the input itself when the size already matches."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    h_in, w_in = x.shape[-2:]
+    wr = _antialias_weights(h_in, int(size[0]), x.device)
+    wc = _antialias_weights(w_in, int(size[1]), x.device)
+    y = torch.einsum("...hw,jw->...hj", x.float(), wc)
+    y = torch.einsum("...hj,ih->...ij", y, wr)
+    return y.to(x.dtype)
+
+
 def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """``F.interpolate(x, size, mode='nearest')`` (torch's legacy
     ``src = floor(dst * in/out)`` mapping), any dtype."""

@@ -31,6 +31,8 @@ from protosam_tpu_torch.ops.prompts import build_sam_prompts
 from protosam_tpu_torch.ops.resize import (resize_bilinear,
                                            resize_bilinear_then_nearest,
                                            resize_nearest)
+from protosam_tpu_torch.ops.rotate import (reverse_tensor,
+                                           rotate_tensor_no_crop)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +114,19 @@ class ProtoSAM:
         logits = self.coarse_model(supp, fg, bg, qrys, isval, val_wsize,
                                    supp_fts=supp_fts)["logits"]
         return self._refine_core(qrys, logits)
+
+    @torch.no_grad()
+    def _forward_rotated(self, qry, inp: ALPNetInput, degrees: int):
+        """Rotation TTA (reference ProtoSAM.py:543-556): the coarse logits
+        of the rotated query, rotated back, refined on the query itself."""
+        rotated, (rh, rw) = rotate_tensor_no_crop(qry, degrees)
+        inp.set_query_images(rotated)
+        logits = self.coarse_model(
+            inp.supp_imgs, inp.fore_mask, inp.back_mask, rotated, inp.isval,
+            inp.val_wsize, supp_fts=inp.supp_fts)["logits"]
+        logits = reverse_tensor(logits, rh, rw, -degrees)
+        inp.set_query_images(qry)
+        return self._refine_core(qry, logits)
 
     def _refine_core(self, qrys, logits):
         cfg = self.config
@@ -266,10 +281,13 @@ class ProtoSAM:
     def forward(self, query_image: torch.Tensor,
                 coarse_model_input: ALPNetInput, degrees_rotate: int = 0):
         """(pred (H, W), scores (K,)) for one query (1, 3, H, W) —
-        reference ProtoSAM.forward.  Rotation TTA is not ported."""
-        if degrees_rotate != 0:
-            raise NotImplementedError("rotation TTA is not ported yet")
+        reference ProtoSAM.forward.  ``degrees_rotate != 0`` takes the
+        coarse logits from the rotated query (``_forward_rotated``)."""
         inp = coarse_model_input
+        if degrees_rotate != 0:
+            pred, scores = self._forward_rotated(query_image, inp,
+                                                 degrees_rotate)
+            return pred[0], scores[0]
         inp.set_query_images(query_image)
         pred, scores = self._forward_core(
             inp.supp_imgs, inp.fore_mask, inp.back_mask, inp.qry_imgs,

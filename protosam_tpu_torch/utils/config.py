@@ -4,9 +4,8 @@ defaults, plus the sacred-style ``with key=value`` CLI override syntax so the
 launch scripts map 1:1 (run_protosam.sh:99-123, backbone.sh:148-177).
 
 The same ``Config`` as ``protosam_tpu.utils.config``, copied so that this
-package needs no JAX: plain Python, the same fields and defaults.  The run
-directory's source snapshot (``snapshot_sources``) comes with the eval loop
-(ROADMAP §1 item 13).
+package needs no JAX: plain Python, the same fields and defaults, and the
+same source snapshot of a run directory (``snapshot_sources``).
 """
 
 from __future__ import annotations
@@ -154,6 +153,34 @@ class Config:
     def save(self, path: str | Path):
         Path(path).write_text(json.dumps(self.to_dict(), indent=2,
                                          default=str))
+
+    def snapshot_sources(self, log_dir: str | Path):
+        """Sacred-style source capture (reference config_ssl_upload.py:26-30
+        + FileStorageObserver): copy the entry script and record the repo
+        revision into ``<log_dir>/_sources`` so a run is reproducible from
+        its log directory alone."""
+        import shutil
+        import subprocess
+        import sys
+
+        dst = Path(log_dir) / "_sources"
+        dst.mkdir(parents=True, exist_ok=True)
+        main = sys.modules.get("__main__")
+        main_file = getattr(main, "__file__", None)
+        if main_file and Path(main_file).exists():
+            shutil.copy2(main_file, dst / Path(main_file).name)
+        repo = Path(__file__).resolve().parents[2]
+        try:
+            rev = subprocess.run(
+                ["git", "-C", str(repo), "rev-parse", "HEAD"],
+                capture_output=True, text=True, timeout=10).stdout.strip()
+            dirty = subprocess.run(
+                ["git", "-C", str(repo), "status", "--porcelain"],
+                capture_output=True, text=True, timeout=10).stdout.strip()
+            (dst / "REVISION").write_text(
+                rev + (" (dirty)\n" if dirty else "\n"))
+        except (OSError, subprocess.SubprocessError):
+            pass
 
 
 def parse_overrides(argv: list[str]) -> dict[str, Any]:

@@ -170,3 +170,50 @@ def sam_state_dict(params: Mapping, global_attn_indexes: Sequence[int],
         _dense(sd, f"mask_decoder.iou_prediction_head.layers.{j}",
                head[f"layers_{j}"])
     return sd
+
+
+def load_sam_pth(path: str) -> dict[str, torch.Tensor]:
+    """A SAM / MedSAM ``.pth`` (reference build_sam.py:55-107 key names) as
+    the state_dict of the port's ``build_sam`` module, which uses the same
+    names; ``load_state_dict`` on the module is strict."""
+    return dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def hf_dinov2_to_hub_state_dict(sd: Mapping[str, torch.Tensor]
+                                ) -> dict[str, torch.Tensor]:
+    """A HuggingFace ``Dinov2Model`` state_dict in the facebook-hub layout
+    of the port's DINOv2 (per-layer q/k/v fused back into qkv), as JAX
+    ``utils/torch_convert.py:291`` maps it for its converter.  HF mirrors
+    the hub weights (facebook/dinov2-large etc.) under other names."""
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    out = {
+        "cls_token": sd["embeddings.cls_token"],
+        "pos_embed": sd["embeddings.position_embeddings"],
+        "patch_embed.proj.weight":
+            sd["embeddings.patch_embeddings.projection.weight"],
+        "patch_embed.proj.bias":
+            sd["embeddings.patch_embeddings.projection.bias"],
+        "norm.weight": sd["layernorm.weight"],
+        "norm.bias": sd["layernorm.bias"],
+    }
+    if "embeddings.mask_token" in sd:
+        out["mask_token"] = sd["embeddings.mask_token"]
+    if "embeddings.register_tokens" in sd:
+        out["register_tokens"] = sd["embeddings.register_tokens"]
+    i = 0
+    while f"encoder.layer.{i}.norm1.weight" in sd:
+        p, b = f"encoder.layer.{i}.", f"blocks.{i}."
+        for kind in ("weight", "bias"):
+            out[f"{b}attn.qkv.{kind}"] = torch.cat(
+                [sd[f"{p}attention.attention.{n}.{kind}"]
+                 for n in ("query", "key", "value")])
+            out[f"{b}attn.proj.{kind}"] = \
+                sd[f"{p}attention.output.dense.{kind}"]
+            for norm in ("norm1", "norm2"):
+                out[f"{b}{norm}.{kind}"] = sd[f"{p}{norm}.{kind}"]
+            for fc in ("fc1", "fc2"):
+                out[f"{b}mlp.{fc}.{kind}"] = sd[f"{p}mlp.{fc}.{kind}"]
+        out[f"{b}ls1.gamma"] = sd[f"{p}layer_scale1.lambda1"]
+        out[f"{b}ls2.gamma"] = sd[f"{p}layer_scale2.lambda1"]
+        i += 1
+    return out

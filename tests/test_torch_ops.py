@@ -274,10 +274,13 @@ def test_import_pulls_in_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'protosam_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'protosam_tpu', 'cv2', 'pandas', "
+        "'SimpleITK', 'nibabel')]\n"
         "print(len(bad)); assert not bad, bad\n"
         "for m in ('ops.mlp', 'ops.alp', 'eval.protosam_eval', "
-        "'utils.config'):\n"
+        "'utils.config', 'data.medical', 'data.nifti', 'utils.checkpoint', "
+        "'utils.detection', 'pipeline.protomedsam', 'ops.rotate', "
+        "'validation_protosam'):\n"
         "    assert 'protosam_tpu_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)

@@ -427,12 +427,11 @@ def test_build_models_passes_routes_and_seed():
 
 
 @pytest.mark.parametrize("overrides,err", [
-    (dict(modelname="dinov2_t14", protosam_sam_ver="medsam"),
-     NotImplementedError),
+    # an orbax checkpoint directory: JAX's format, not read by the port
     (dict(modelname="dinov2_t14", protosam_sam_ver="vit_t",
-          reload_model_path="alpnet.pth"), NotImplementedError),
+          reload_model_path="alpnet_orbax"), NotImplementedError),
     (dict(protosam_sam_ver="vit_t"), KeyError),  # dlfcn_res101 backbone
-], ids=["medsam", "checkpoint", "resnet"])
+], ids=["checkpoint", "resnet"])
 def test_build_models_refuses_what_is_not_ported(overrides, err):
     with pytest.raises(err):
         protosam_eval.build_models(Config(**overrides), device="cpu")
