@@ -64,7 +64,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ``run_eval``'s slices/s is printed beside ``forward_volume``'s
    ms/slice; 7c holds the rotate / reverse ops (1e-5) and the tiny
    pipeline's ``forward(degrees_rotate=15)`` (Dice >= 0.99, scores 1e-4)
-   on the card to the CPU.
+   on the card to the CPU;
+8. training, on the same fold with its superpixel maps: 8a ``train()`` at
+   DINOv2-L/14 672, bf16 with f32 master weights, SGD, one episode a
+   step, 4 steps with snapshots every 2, then a resume to step 5: finite
+   losses, K1 and K2 launched forward and backward, K5 never; the median
+   ms/step, the batch wait apart from it and the peak memory are printed,
+   and ``tools.trace_train_step`` times the step alone and traces it;
+   8b K1 at (4864, 1024) and K2 at (2, 2432, 3072), 2305 valid, under
+   grad against the plain versions' autograd (bf16 2e-2·max(1, max|ref|),
+   f32 1e-4), each backward's device time beside the library's, and the
+   tiny f32 model's train step on the card against the CPU (1e-4); 8c the
+   training CLI's default ``dlfcn_res101`` at 252 px, 3 steps, finite;
+   8d ``run_alpnet_eval`` at DINOv2-L/14 672 with ``do_cca`` and
+   test-time training on 2 query slices (K1-K3 launched, slices/s
+   printed), and the tiny f32 model's eval on the card against the CPU
+   (metrics within 1e-6).
 
 Then one JSON line with the kernels' numbers (each with its bound from
 ``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
@@ -77,6 +92,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -826,7 +842,8 @@ def _numbers(row: dict) -> dict:
 
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, int8_launches: dict,
-                  tools: dict, eval_launches: dict) -> dict:
+                  tools: dict, eval_launches: dict, train: dict,
+                  alpnet: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
@@ -842,7 +859,11 @@ def kernel_report(checks: list[dict], launches: dict,
     the kernel table take their times from the tools' own runs (phase 6),
     at the tools' shapes, and their launches from those runs.  K2 carries
     its ``check_mask`` result; its f32 and bf16-score instantiations live
-    in ``csrc/attention.cu``; K7 its ``check_exchange`` result."""
+    in ``csrc/attention.cu``; K7 its ``check_exchange`` result.
+    ``train_launches`` / ``train_backward_calls`` count the 4 steps of the
+    DINOv2-L training run (phase 8a), ``alpnet_eval_launches`` the ALPNet
+    eval with TTT (phase 8d); K1 and K2 carry their backward's time a call
+    (phase 8b) beside the library's."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -855,6 +876,10 @@ def kernel_report(checks: list[dict], launches: dict,
                  "flagship_launches": flagship_launches.get(name, 0),
                  "flagship_int8_launches": int8_launches.get(name, 0),
                  "eval_launches": eval_launches.get(name, 0),
+                 "train_launches": train["launches"].get(name, 0),
+                 "train_backward_calls":
+                     train["backward_calls"].get(name, 0),
+                 "alpnet_eval_launches": alpnet["launches"].get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -863,6 +888,8 @@ def kernel_report(checks: list[dict], launches: dict,
                                              for r in rows))
         if name in INT8_KERNELS:
             entry.update(per_shape={r["label"]: _numbers(r) for r in rows})
+        if name in train["kernels_under_grad"]:
+            entry.update(under_grad=train["kernels_under_grad"][name])
         if name == "cca_label":
             entry.update(tile_class_equal=main["tile_class_equal"])
         if name == "packed_masked_attention":
@@ -977,8 +1004,8 @@ FOLD_NAMES = ["BG", "LIVER", "RK", "LK", "SPLEEN"]
 
 def write_fold(base_dir: str, seed: int = 0) -> str:
     """The synthetic CHAOS-T2 fold (the recipe of the tests' synthetic
-    dataset at this size), written with the port's ``write_nii``: image and
-    label volumes and the classmaps the data layer reads."""
+    dataset at this size), written with the port's ``write_nii``: image,
+    label and superpixel volumes and the classmaps the data layer reads."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -986,6 +1013,10 @@ def write_fold(base_dir: str, seed: int = 0) -> str:
 
     zz, yy, xx = np.mgrid[:FOLD_Z, :FOLD_HW, :FOLD_HW].astype(np.float32)
     cz, rz = (FOLD_Z - 1) / 2.0, FOLD_Z / 3.0
+    # the superpixel maps the trainer reads: a 4 x 4 grid of blocks (ids
+    # 1-16), the tests' recipe
+    cell = FOLD_HW // 4
+    superpix = (yy // cell * 4 + xx // cell + 1).astype(np.int16)
 
     def scan(i: int) -> dict:
         rng = np.random.default_rng(seed + i)
@@ -1002,6 +1033,8 @@ def write_fold(base_dir: str, seed: int = 0) -> str:
                   f"{base_dir}/image_{i}.nii.gz")
         write_nii(NiftiImage(lbl, (1.5, 1.5, 5.0)),
                   f"{base_dir}/label_{i}.nii.gz")
+        write_nii(NiftiImage(superpix, (1.5, 1.5, 5.0)),
+                  f"{base_dir}/superpix-MIDDLE_{i}.nii.gz")
         zs = {FOLD_NAMES[c]: sorted(int(z) for z in
                                     np.unique(np.where(lbl == c)[0]))
               for c in FOLD_ORGANS}
@@ -1104,77 +1137,76 @@ def _metrics(result: dict) -> dict:
             if k not in ("slices_per_sec", "stage_timings", "launches")}
 
 
-def phase_eval(counters: dict, smi: str) -> dict:
-    """The eval entry point on a NIfTI fold written here: ``run_eval`` for
-    ProtoSAM (7a) and ProtoMedSAM (7b) built in memory and from ``.pth``
-    files of the same seeded weights, then rotation TTA (7c).  Returns the
-    launch counts of 7a's ``.pth`` run in ``volume`` mode."""
+def phase_eval(counters: dict, smi: str, tmp: str) -> tuple[dict, str]:
+    """The eval entry point on a NIfTI fold written under ``tmp``:
+    ``run_eval`` for ProtoSAM (7a) and ProtoMedSAM (7b) built in memory and
+    from ``.pth`` files of the same seeded weights, then rotation TTA (7c).
+    Returns the launch counts of 7a's ``.pth`` run in ``volume`` mode and
+    the fold's directory."""
     import os
-    import tempfile
 
     from protosam_tpu_torch.eval.protosam_eval import build_models
     from protosam_tpu_torch.utils.convert import load_sam_pth
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        fold = os.path.join(tmp, "chaos")
-        os.makedirs(fold)
-        write_fold(fold)
-        cfg = eval_config(fold, "sam_b")
-        alpnet_pth, sam_pth = save_snapshots(cfg, tmp)
-        log(f"phase 7 eval: wrote a {FOLD_SCANS}-scan fold of {FOLD_Z} x "
-            f"{FOLD_HW}² slices and the .pth snapshots in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for tag, sam_ver in (("7a ProtoSAM", "sam_b"),
-                             ("7b ProtoMedSAM", "medsam")):
-            mem_cfg = eval_config(fold, sam_ver,
-                                  log_dir=os.path.join(tmp, "log"))
-            pipe = build_models(mem_cfg)
-            mem, mem_masks = counted_eval(f"phase {tag} in memory", mem_cfg,
-                                          pipe, counters)
-            del pipe
-            if not os.path.exists(os.path.join(tmp, "log",
-                                               "protosam_eval_result.json")):
-                raise AssertionError("run_eval wrote no result to log_dir")
-            pth_cfg = eval_config(fold, sam_ver,
-                                  reload_model_path=alpnet_pth)
-            pipe = build_models(pth_cfg, sam_state=load_sam_pth(sam_pth))
-            pth, pth_masks = counted_eval(f"phase {tag} from .pth", pth_cfg,
-                                          pipe, counters)
-            same = np.array_equal(pth_masks, mem_masks)
-            log(f"phase {tag}: .pth build vs in-memory build: masks "
-                f"bit-equal {same}, metrics equal "
-                f"{_metrics(pth) == _metrics(mem)}")
-            if not same or _metrics(pth) != _metrics(mem):
-                raise AssertionError(f"{tag}: the .pth build differs from "
-                                     f"the in-memory build")
-            vol_ms = (pth["stage_timings"]["volume_chunk"]["total_s"]
-                      / pth["n_slices"] * 1e3)
-            log(f"phase {tag} [{smi}]: run_eval {pth['slices_per_sec']:.2f} "
-                f"slices/s ({1e3 / pth['slices_per_sec']:.2f} ms/slice) "
-                f"beside forward_volume {vol_ms:.2f} ms/slice on the same "
-                f"{pth['n_slices']} slices")
-            if sam_ver == "sam_b":
-                eval_launches = pth["launches"]
-                slc, slc_masks = counted_eval(f"phase {tag} per_slice",
-                                              pth_cfg, pipe, counters,
-                                              mode="per_slice")
-                gaps = {k: abs(slc[k] - pth[k]) for k in (
-                    "mar_val_batches_meanDice", "mar_val_batches_meanPrec",
-                    "mar_val_al_batches_meanRec",
-                    "mar_val_al_batches_meanIOU")}
-                dices = [dice(torch.from_numpy(a), torch.from_numpy(b))
-                         for a, b in zip(slc_masks, pth_masks)]
-                mean = sum(dices) / len(dices)
-                log(f"phase {tag}: per_slice vs volume: metric gaps {gaps}, "
-                    f"mask Dice mean {mean:.5f} min {min(dices):.5f}")
-                if max(gaps.values()) > 1e-3 or mean < 0.99:
-                    raise AssertionError(f"{tag}: per_slice and volume "
-                                         f"disagree")
-            del pipe
+    t0 = time.perf_counter()
+    fold = os.path.join(tmp, "chaos")
+    os.makedirs(fold)
+    write_fold(fold)
+    cfg = eval_config(fold, "sam_b")
+    alpnet_pth, sam_pth = save_snapshots(cfg, tmp)
+    log(f"phase 7 eval: wrote a {FOLD_SCANS}-scan fold of {FOLD_Z} x "
+        f"{FOLD_HW}² slices and the .pth snapshots in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for tag, sam_ver in (("7a ProtoSAM", "sam_b"),
+                         ("7b ProtoMedSAM", "medsam")):
+        mem_cfg = eval_config(fold, sam_ver,
+                              log_dir=os.path.join(tmp, "log"))
+        pipe = build_models(mem_cfg)
+        mem, mem_masks = counted_eval(f"phase {tag} in memory", mem_cfg,
+                                      pipe, counters)
+        del pipe
+        if not os.path.exists(os.path.join(tmp, "log",
+                                           "protosam_eval_result.json")):
+            raise AssertionError("run_eval wrote no result to log_dir")
+        pth_cfg = eval_config(fold, sam_ver,
+                              reload_model_path=alpnet_pth)
+        pipe = build_models(pth_cfg, sam_state=load_sam_pth(sam_pth))
+        pth, pth_masks = counted_eval(f"phase {tag} from .pth", pth_cfg,
+                                      pipe, counters)
+        same = np.array_equal(pth_masks, mem_masks)
+        log(f"phase {tag}: .pth build vs in-memory build: masks "
+            f"bit-equal {same}, metrics equal "
+            f"{_metrics(pth) == _metrics(mem)}")
+        if not same or _metrics(pth) != _metrics(mem):
+            raise AssertionError(f"{tag}: the .pth build differs from "
+                                 f"the in-memory build")
+        vol_ms = (pth["stage_timings"]["volume_chunk"]["total_s"]
+                  / pth["n_slices"] * 1e3)
+        log(f"phase {tag} [{smi}]: run_eval {pth['slices_per_sec']:.2f} "
+            f"slices/s ({1e3 / pth['slices_per_sec']:.2f} ms/slice) "
+            f"beside forward_volume {vol_ms:.2f} ms/slice on the same "
+            f"{pth['n_slices']} slices")
+        if sam_ver == "sam_b":
+            eval_launches = pth["launches"]
+            slc, slc_masks = counted_eval(f"phase {tag} per_slice",
+                                          pth_cfg, pipe, counters,
+                                          mode="per_slice")
+            gaps = {k: abs(slc[k] - pth[k]) for k in (
+                "mar_val_batches_meanDice", "mar_val_batches_meanPrec",
+                "mar_val_al_batches_meanRec",
+                "mar_val_al_batches_meanIOU")}
+            dices = [dice(torch.from_numpy(a), torch.from_numpy(b))
+                     for a, b in zip(slc_masks, pth_masks)]
+            mean = sum(dices) / len(dices)
+            log(f"phase {tag}: per_slice vs volume: metric gaps {gaps}, "
+                f"mask Dice mean {mean:.5f} min {min(dices):.5f}")
+            if max(gaps.values()) > 1e-3 or mean < 0.99:
+                raise AssertionError(f"{tag}: per_slice and volume "
+                                     f"disagree")
+        del pipe
     phase_rotation()
     log(f"phase 7 eval: {time.perf_counter() - t0:.1f} s in all")
-    return eval_launches
+    return eval_launches, fold
 
 
 def phase_rotation() -> None:
@@ -1225,6 +1257,343 @@ def phase_rotation() -> None:
         raise AssertionError("rotation TTA: card and CPU disagree")
 
 
+
+# the kernels every training step on DINOv2 runs, forward and backward
+TRAIN_KERNELS = ["layer_norm_rows", "packed_masked_attention"]
+
+
+def train_config(fold: str, log_dir: str = "", **extra):
+    """The training CLI's settings on the phase 7 fold (CHAOST2 fold 0,
+    the superpixel maps as pseudo-labels, SGD with its defaults, one
+    episode a step, one shot, seed 42), bf16 with f32 master weights,
+    every step in the history; ``extra`` as further ``key=value``
+    overrides."""
+    from protosam_tpu_torch.utils.config import load_config
+
+    argv = ["with", "dataset=CHAOST2_Superpix", "eval_fold=0", "seed=42",
+            f"path.CHAOST2_Superpix.data_dir={fold}",
+            f"path.CHAOST2.data_dir={fold}",
+            f"path.CHAOST2_672.data_dir={fold}", "batch_size=1",
+            "dtype=bfloat16", "print_interval=1", "num_workers=4"]
+    argv += [f"{k}={v}" for k, v in extra.items()]
+    cfg = load_config(argv)
+    cfg.log_dir = log_dir
+    return cfg
+
+
+def backward_counts() -> dict:
+    from protosam_tpu_torch.ops.attention import \
+        masked_flash_attention_packed
+    from protosam_tpu_torch.ops.norm import layer_norm_rows
+
+    return {"layer_norm_rows": layer_norm_rows.backward_calls,
+            "packed_masked_attention":
+                masked_flash_attention_packed.backward_calls}
+
+
+def zero_backward_counts() -> None:
+    from protosam_tpu_torch.ops.attention import \
+        masked_flash_attention_packed
+    from protosam_tpu_torch.ops.norm import layer_norm_rows
+
+    layer_norm_rows.backward_calls = 0
+    masked_flash_attention_packed.backward_calls = 0
+
+
+def counted_train(tag: str, cfg, counters: dict, steps: int,
+                  required: list[str]) -> dict:
+    """``train(cfg, steps)`` on the card with every count zeroed just
+    before and read just after; the losses must be finite, the kernels of
+    ``required`` must have launched forward and backward, and K5 not at
+    all (it has no backward)."""
+    from protosam_tpu_torch.train.trainer import train
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    zero_backward_counts()
+    t0 = time.perf_counter()
+    out = train(cfg, max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bwd = read_counts(counters), backward_counts()
+    losses = [h["loss"] for h in out["history"]]
+    log(f"{tag}: steps {[h['step'] for h in out['history']]} losses "
+        f"{[round(x, 5) for x in losses]} (ce "
+        f"{[round(h['ce'], 5) for h in out['history']]}, align "
+        f"{[round(h['align_loss'], 5) for h in out['history']]}); kernel "
+        f"launches {launches}, backward calls {bwd}; {wall:.1f} s")
+    if not losses or not np.all(np.isfinite(losses)) or out["skipped"]:
+        raise AssertionError(f"{tag}: non-finite or skipped steps")
+    if out["step"] != steps:
+        raise AssertionError(f"{tag}: stopped at step {out['step']}")
+    missing = [k for k in required if launches[k] == 0 or bwd[k] == 0]
+    if missing or launches["alp_match"]:
+        raise AssertionError(f"{tag}: kernels {missing} not launched "
+                             f"forward and backward, or K5 launched "
+                             f"({launches['alp_match']})")
+    out.update(launches=launches, backward_calls=bwd,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def phase_train(counters: dict, smi: str, tmp: str, fold: str) -> dict:
+    """8a: ``train()`` at DINOv2-L/14 672, 4 steps with snapshots every 2,
+    then a resume to step 5; 8b: K1 and K2 under grad against the plain
+    versions' autograd, and the tiny f32 train step card against CPU; 8c:
+    the ResNet-101 default at 252 px, 3 steps."""
+    import os
+
+    from protosam_tpu_torch.tools import trace_train_step
+
+    t0 = time.perf_counter()
+    log_dir = os.path.join(tmp, "train_l14")
+    cfg = train_config(fold, log_dir, modelname="dinov2_l14",
+                       **{"input_size": "(672, 672)",
+                          "save_snapshot_every": 2})
+    out = counted_train("phase 8a train dinov2_l14 672", cfg, counters, 4,
+                        TRAIN_KERNELS)
+    step_ms = float(np.median(out["step_ms"][1:]))
+    wait_ms = float(np.median(out["wait_ms"][1:]))
+    log(f"phase 8a train [{smi}]: {step_ms:.1f} ms/step (median of steps "
+        f"2-4; per step {[round(x, 1) for x in out['step_ms']]}), batch "
+        f"wait {wait_ms:.1f} ms (per step "
+        f"{[round(x, 1) for x in out['wait_ms']]}), peak memory "
+        f"{out['peak_gib']:.2f} GiB")
+    snaps = sorted(os.listdir(os.path.join(log_dir, "snapshots")))
+    resumed = counted_train("phase 8a resume", cfg, counters, 5,
+                            TRAIN_KERNELS)
+    if [h["step"] for h in resumed["history"]] != [5]:
+        raise AssertionError(f"resume ran {resumed['history']}")
+    log(f"phase 8a: snapshots {snaps}; resumed to step {resumed['step']}")
+    alone = trace_train_step.run(top=10)
+    log(f"phase 8a: the step alone (no prefetch threads, one episode) "
+        f"{alone['step_ms']:.1f} ms, device idle "
+        f"{100 * alone['idle_share']:.1f}% of a traced step, beside "
+        f"train()'s {step_ms:.1f} ms/step")
+    result = {"launches": out["launches"],
+              "backward_calls": out["backward_calls"],
+              "step_ms": step_ms, "wait_ms": wait_ms,
+              "peak_gib": out["peak_gib"], "steps": 4,
+              "isolated_step_ms": alone["step_ms"],
+              "isolated_idle_share": alone["idle_share"],
+              **phase_train_kernels()}
+
+    cfg = train_config(fold, os.path.join(tmp, "train_res101"),
+                       modelname="dlfcn_res101")
+    res = counted_train(f"phase 8c train dlfcn_res101 {cfg.input_size[0]}",
+                        cfg, counters, 3, [])
+    log(f"phase 8c: {float(np.median(res['step_ms'][1:])):.1f} ms/step, "
+        f"batch wait {float(np.median(res['wait_ms'][1:])):.1f} ms, peak "
+        f"memory {res['peak_gib']:.2f} GiB")
+    trace_train_step.run("dlfcn_res101", cfg.input_size[0], top=6)
+    log(f"phase 8a-8c: {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def _grad_error(got, want, kind: str) -> tuple[float, float]:
+    from protosam_tpu_torch.tools.timing import bf16_error
+
+    if kind == "bf16":
+        return bf16_error(got, want, BF16_TOL)
+    return (got.float() - want.float()).abs().max().item(), F32_TOL
+
+
+def phase_train_kernels() -> dict:
+    """8b: K1 at the DINOv2-L rows (4864, 1024) and K2 at its qkv (2, 2432,
+    3072), 2305 valid, under grad: the output and every gradient against
+    the plain version's autograd in f32, bf16 and f32; the backward's
+    device time per call beside the library's (``F.layer_norm``, SDPA on
+    the valid keys).  Then the tiny f32 model's train step on the card
+    against the CPU."""
+    from protosam_tpu_torch.ops.attention import (
+        masked_attention_packed_plain, masked_flash_attention_packed)
+    from protosam_tpu_torch.ops.norm import (layer_norm_rows,
+                                             layer_norm_rows_plain)
+    from protosam_tpu_torch.tools.timing import device_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(8)
+    randn = lambda *s: torch.randn(*s, generator=g).to(dev)
+    grad = torch.autograd.grad
+    out: dict = {}
+
+    rows, c = 4864, 1024
+    x0, w0, b0 = randn(rows, c) * 3 + 1, 1 + 0.1 * randn(c), 0.1 * randn(c)
+    gy = randn(rows, c)
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = x0.to(dt).requires_grad_()
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        xr = x.detach().float().requires_grad_()
+        before = layer_norm_rows.backward_calls
+        y = layer_norm_rows(x, w, b, 1e-6)
+        got = (y, *grad(y, (x, w, b), gy.to(dt)))
+        yr = layer_norm_rows_plain(xr, w, b, 1e-6, torch.float32)
+        want = (yr, *grad(yr, (xr, w, b), gy.to(dt).float()))
+        errs = [_grad_error(a, e, kind) for a, e in zip(got, want)]
+        log(f"phase 8b K1 under grad ({rows}x{c} {kind}): y, dx, dw, db "
+            f"max abs err {[f'{e:.2e}' for e, _ in errs]} (bounds "
+            f"{[f'{t:.2e}' for _, t in errs]}); backward calls "
+            f"{layer_norm_rows.backward_calls - before}")
+        if any(e > t for e, t in errs) or \
+                layer_norm_rows.backward_calls == before:
+            raise AssertionError(f"K1 under grad ({kind}) disagrees")
+        if kind == "bf16":
+            fwd = device_ms(lambda: layer_norm_rows(x, w, b, 1e-6))
+            both = device_ms(lambda: grad(layer_norm_rows(x, w, b, 1e-6),
+                                          (x, w, b), gy.to(dt)))
+            lib = device_ms(lambda: grad(F.layer_norm(
+                x, (c,), w.to(dt), b.to(dt), 1e-6), (x, w, b), gy.to(dt)))
+            lib_fwd = device_ms(lambda: F.layer_norm(x, (c,), w.to(dt),
+                                                     b.to(dt), 1e-6))
+            out["layer_norm_rows"] = {
+                "forward_ms": fwd.median_ms,
+                "backward_ms": both.median_ms - fwd.median_ms,
+                "library_backward_ms": lib.median_ms - lib_fwd.median_ms,
+                "grad_max_abs_err": max(e for e, _ in errs)}
+
+    b_, s, n_valid, nh, hd = 2, 2432, 2305, 16, 64
+    q0 = randn(b_, s, 3 * nh * hd)
+    go = randn(b_, s, nh * hd)
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        qkv = q0.to(dt).requires_grad_()
+        ref = qkv.detach().float().requires_grad_()
+        before = masked_flash_attention_packed.backward_calls
+        attn = lambda t: masked_flash_attention_packed(
+            t, scale=hd ** -0.5, num_heads=nh, n_valid=n_valid)
+        o = attn(qkv)
+        got = (o, grad(o, qkv, go.to(dt))[0])
+        orr = masked_attention_packed_plain(ref, scale=hd ** -0.5,
+                                            num_heads=nh, n_valid=n_valid)
+        want = (orr, grad(orr, ref, go.to(dt).float())[0])
+        errs = [_grad_error(a, e, kind) for a, e in zip(got, want)]
+        log(f"phase 8b K2 under grad ({b_}x{s}x{3 * nh * hd} {kind}, "
+            f"{n_valid} valid): out, dqkv max abs err "
+            f"{[f'{e:.2e}' for e, _ in errs]} (bounds "
+            f"{[f'{t:.2e}' for _, t in errs]}); backward calls "
+            f"{masked_flash_attention_packed.backward_calls - before}")
+        if any(e > t for e, t in errs) or \
+                masked_flash_attention_packed.backward_calls == before:
+            raise AssertionError(f"K2 under grad ({kind}) disagrees")
+        del ref, orr, want
+        if kind == "bf16":
+            fwd = device_ms(lambda: attn(qkv), reps=3, runs=3)
+            both = device_ms(lambda: grad(attn(qkv), qkv, go.to(dt)),
+                             reps=3, runs=3)
+
+            def sdpa(t):
+                q, k, v = (t.reshape(b_, s, 3, nh, hd)[:, :, i]
+                           .transpose(1, 2) for i in range(3))
+                return F.scaled_dot_product_attention(
+                    q, k[:, :, :n_valid], v[:, :, :n_valid],
+                    scale=hd ** -0.5)
+
+            lib = device_ms(lambda: grad(sdpa(qkv), qkv,
+                                         go.to(dt).reshape(b_, s, nh, hd)
+                                         .transpose(1, 2)), reps=3, runs=3)
+            lib_fwd = device_ms(lambda: sdpa(qkv), reps=3, runs=3)
+            out["packed_masked_attention"] = {
+                "forward_ms": fwd.median_ms,
+                "backward_ms": both.median_ms - fwd.median_ms,
+                "library_backward_ms": lib.median_ms - lib_fwd.median_ms,
+                "grad_max_abs_err": max(e for e, _ in errs)}
+    for name, row in out.items():
+        log(f"phase 8b {name} backward (plain VJP): "
+            f"{row['backward_ms']:.4f} ms a call beside its forward "
+            f"{row['forward_ms']:.4f}; the library's backward "
+            f"{row['library_backward_ms']:.4f}")
+    tiny_step_card_vs_cpu()
+    return {"kernels_under_grad": out}
+
+
+def tiny_step_card_vs_cpu() -> None:
+    """The tiny f32 model (``dinov2_t14`` at 64²): one train step on the
+    card (K1 and K2 forward and backward) and on the CPU, same seeded
+    weights and episode, TF32 off: loss and updated params within 1e-4."""
+    from protosam_tpu_torch.train.step import (Batch, make_optimizer,
+                                               train_step)
+    from protosam_tpu_torch.train.trainer import build_coarse_model
+    from protosam_tpu_torch.utils.config import Config
+
+    cfg = Config(modelname="dinov2_t14", input_size=(64, 64),
+                 dtype="float32", seed=5)
+    rng = np.random.default_rng(9)
+    fg = np.zeros((1, 1, 64, 64), np.float32)
+    fg[..., 16:44, 20:40] = 1
+    lbl = np.zeros((1, 64, 64), np.int32)
+    lbl[:, 20:40, 18:46] = 1
+    arrays = (rng.standard_normal((1, 1, 3, 64, 64)).astype(np.float32), fg,
+              1 - fg,
+              rng.standard_normal((1, 1, 3, 64, 64)).astype(np.float32), lbl)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_coarse_model(cfg, dev)
+        m = train_step(model, make_optimizer(model.parameters()),
+                       Batch.from_numpy(arrays, dev))
+        res[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()})
+    loss_err = max(abs(res["cuda"][0][k] - res["cpu"][0][k])
+                   for k in res["cpu"][0])
+    param_err = max((res["cuda"][1][k] - v).abs().max().item()
+                    for k, v in res["cpu"][1].items())
+    log(f"phase 8b tiny f32 train step card vs CPU: loss/ce/align max diff "
+        f"{loss_err:.2e}, updated params max diff {param_err:.2e} (bound "
+        f"1e-4); losses {res['cuda'][0]}")
+    if loss_err > 1e-4 or param_err > 1e-4:
+        raise AssertionError("train step: card and CPU disagree")
+
+
+def phase_alpnet_eval(counters: dict, smi: str, fold: str) -> dict:
+    """8d: ``run_alpnet_eval`` at DINOv2-L/14 672 with ``do_cca`` and
+    test-time training (20 steps a slice) on the first query slice of each
+    test class (2 in all); K1, K2 and K3 must launch.  Then the tiny
+    f32 model's ``run_alpnet_eval`` without TTT on the card against the
+    CPU: metrics within 1e-6."""
+    from protosam_tpu_torch.eval.alpnet_eval import run_alpnet_eval
+
+    t0 = time.perf_counter()
+    cfg = train_config(fold, modelname="dinov2_l14", dataset="CHAOST2",
+                       label_sets=0, support_idx=[-1], do_cca=True,
+                       ttt=True, **{"input_size": "(672, 672)"})
+    zero_counts(counters)
+    zero_backward_counts()
+    t1 = time.perf_counter()
+    res = run_alpnet_eval(cfg, write_preds=False, max_slices=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches, bwd = read_counts(counters), backward_counts()
+    n = 2
+    log(f"phase 8d run_alpnet_eval dinov2_l14 672 cca + TTT [{smi}]: "
+        f"classDice {res['classDice']}, meanDice {res['meanDice']:.5f}; "
+        f"{n} slices in {wall:.1f} s, {n / wall:.4f} slices/s; kernel "
+        f"launches {launches}, backward calls {bwd}")
+    missing = [k for k in TRAIN_KERNELS + ["cca_label"] if launches[k] == 0]
+    if missing or not all(bwd.values()):
+        raise AssertionError(f"8d: kernels not launched: {missing}, "
+                             f"backward {bwd}")
+    if not all(np.isfinite(v) for v in res["classDice"].values()):
+        raise AssertionError(f"8d: non-finite Dice {res}")
+
+    tiny = {}
+    for dev in ("cuda", "cpu"):
+        tcfg = train_config(fold, modelname="dinov2_t14", dataset="CHAOST2",
+                            label_sets=0, support_idx=[-1], do_cca=True,
+                            dtype="float32", seed=5,
+                            **{"input_size": "(64, 64)"})
+        tiny[dev] = run_alpnet_eval(tcfg, write_preds=False, device=dev,
+                                    max_slices=8)
+    gap = max(abs(tiny["cuda"][k][c] - tiny["cpu"][k][c])
+              for k in ("classDice", "classPrec", "classRec")
+              for c in tiny["cpu"][k])
+    log(f"phase 8d tiny f32 run_alpnet_eval card vs CPU: max metric gap "
+        f"{gap:.2e} (bound 1e-6); meanDice {tiny['cuda']['meanDice']:.6f}")
+    if not gap <= 1e-6:
+        raise AssertionError("run_alpnet_eval: card and CPU disagree")
+    log(f"phase 8d: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "backward_calls": bwd,
+            "slices_per_sec": n / wall, "classDice": res["classDice"]}
+
+
 def main() -> int:
     from protosam_tpu_torch.ops.alp import alp_match_fused
     from protosam_tpu_torch.ops.attention import \
@@ -1260,9 +1629,12 @@ def main() -> int:
     del bf16_preds
     launches = phase_vith(counters)
     tools = phase_tools(counters)
-    eval_launches = phase_eval(counters, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_launches, fold = phase_eval(counters, smi, tmp)
+        train = phase_train(counters, smi, tmp, fold)
+        alpnet = phase_alpnet_eval(counters, smi, fold)
     log(json.dumps(kernel_report(checks, launches, flagship, int8, tools,
-                                 eval_launches)))
+                                 eval_launches, train, alpnet)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

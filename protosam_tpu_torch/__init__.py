@@ -1,5 +1,6 @@
-"""protosam_tpu_torch — the ProtoSAM slice pipeline in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper.
+"""protosam_tpu_torch — the ProtoSAM slice pipeline and the ALPNet
+training path in PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper.
 
 The port of ``protosam_tpu`` (JAX/Pallas on a TPU), which stays the
 reference: same module layout, reference PyTorch ``state_dict`` key names.

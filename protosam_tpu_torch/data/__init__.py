@@ -1,2 +1,2 @@
-"""The evaluation data layer: NIfTI volumes, the dataset registry and the
-validation datasets."""
+"""The data layer: NIfTI volumes, the dataset registry, the validation
+datasets, and the superpixel training episodes and their augmentations."""

@@ -1,1 +1,2 @@
-"""Evaluation: the models of an experiment configuration."""
+"""Evaluation: the ProtoSAM and ALPNet-only drivers and test-time
+training."""

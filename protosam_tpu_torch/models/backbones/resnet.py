@@ -1,0 +1,116 @@
+"""Dilated ResNet-101 (the DeepLabV3 backbone) with frozen BatchNorm, JAX
+``models/backbones/resnet.py``; reference
+models/backbone/torchvision_backbones.py:12-58.
+
+torchvision's ``deeplabv3_resnet101`` trunk (ResNet-101 with
+``replace_stride_with_dilation=[False, True, True]``, output stride 8),
+ASPP dropped, then a bias-free 1×1 ``localconv`` to 256 channels.  The keys
+are torchvision's under ``backbone.`` (``backbone.layer3.0.downsample.1``),
+the reference wrapper's layout, which JAX ``convert_deeplab_resnet101``
+reads.  BatchNorm is frozen: ``y = x·(w/√(var+eps)) + (b − mean·w/√(var+
+eps))``.  As in JAX, its four vectors are parameters (flax params), so a
+training step moves them; ``num_batches_tracked`` is not kept.  The
+convolutions are cuDNN's on the card: JAX computes them outside any Pallas
+kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from protosam_tpu_torch.models.master import Conv2d
+
+
+class FrozenBatchNorm(nn.Module):
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.running_mean = nn.Parameter(torch.zeros(c))
+        self.running_var = nn.Parameter(torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        std = torch.sqrt(self.running_var + self.eps)
+        scale = (self.weight / std).to(x.dtype)
+        shift = (self.bias - self.running_mean * self.weight / std).to(
+            x.dtype)
+        return x * scale[:, None, None] + shift[:, None, None]
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1,
+          dilation: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2),
+                  dilation=dilation, bias=False)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, planes: int, stride: int, dilation: int,
+                 downsample: bool):
+        super().__init__()
+        self.conv1 = _conv(cin, planes, 1)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.downsample = (nn.Sequential(_conv(cin, planes * 4, 1, stride),
+                                         FrozenBatchNorm(planes * 4))
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNetTrunk(nn.Module):
+    """torchvision ResNet's stem and layer1-4 (the keys of its
+    IntermediateLayerGetter), dilated from layer3 on."""
+
+    def __init__(self, layers: tuple = (3, 4, 23, 3)):
+        super().__init__()
+        self.conv1 = _conv(3, 64, 7, stride=2)
+        self.bn1 = FrozenBatchNorm(64)
+        # (planes, blocks, stride, dilations): layer3/4 keep stride 1 and
+        # dilate; each first block keeps the previous dilation
+        specs = [(64, layers[0], 1, [1] * layers[0]),
+                 (128, layers[1], 2, [1] * layers[1]),
+                 (256, layers[2], 1, [1] + [2] * (layers[2] - 1)),
+                 (512, layers[3], 1, [2] + [4] * (layers[3] - 1))]
+        cin = 64
+        for li, (planes, blocks, stride, dils) in enumerate(specs, start=1):
+            blks = []
+            for bi in range(blocks):
+                blks.append(Bottleneck(
+                    cin, planes, stride if bi == 0 else 1, dils[bi],
+                    bi == 0 and (stride != 1 or cin != planes * 4)))
+                cin = planes * 4
+            setattr(self, f"layer{li}", nn.Sequential(*blks))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for li in range(1, 5):
+            x = getattr(self, f"layer{li}")(x)
+        return x
+
+
+class DeeplabRes101Encoder(nn.Module):
+    """(B, 3, H, W) -> (B, 256, ceil(H/8), ceil(W/8)) in the compute
+    dtype."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def __init__(self, layers: tuple = (3, 4, 23, 3)):
+        super().__init__()
+        self.backbone = ResNetTrunk(layers)
+        self.localconv = _conv(2048, 256, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.localconv.weight.dtype
+        return self.localconv(self.backbone(x.to(dt)))

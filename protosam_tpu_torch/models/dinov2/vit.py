@@ -18,6 +18,7 @@ from torch import nn
 
 from protosam_tpu_torch.models.layers import (TokenLayerNorm, cast_compute,
                                               gelu_for)
+from protosam_tpu_torch.models.master import Conv2d
 from protosam_tpu_torch.ops.attention import masked_flash_attention_packed
 from protosam_tpu_torch.ops.quant import dense_cls
 from protosam_tpu_torch.ops.resize import resize_bicubic_torch
@@ -78,6 +79,9 @@ class Block(nn.Module):
 
 
 class DinoVisionTransformer(nn.Module):
+    # set with f32 master weights (``cast_compute(..., master_weights=True)``)
+    compute_dtype: torch.dtype | None = None
+
     def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16,
                  mlp_ratio: float = 4.0, num_register_tokens: int = 0,
@@ -100,8 +104,8 @@ class DinoVisionTransformer(nn.Module):
         # unused at inference; kept so hub checkpoints load as they are
         self.mask_token = nn.Parameter(torch.zeros(1, embed_dim))
         self.patch_embed = nn.Module()
-        self.patch_embed.proj = nn.Conv2d(3, embed_dim, patch_size,
-                                          patch_size)
+        self.patch_embed.proj = Conv2d(3, embed_dim, patch_size,
+                                       patch_size)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, quant_dense)
             for _ in range(depth))
@@ -115,7 +119,7 @@ class DinoVisionTransformer(nn.Module):
         ``x_norm_patchtokens`` (B, N, C), all f32."""
         b, _, h, w = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
-        dt = self.patch_embed.proj.weight.dtype
+        dt = self.compute_dtype or self.patch_embed.proj.weight.dtype
         x = self.patch_embed.proj(x.to(dt)).flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = x + self._interpolate_pos_encoding(gh, gw).to(dt)

@@ -8,6 +8,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from protosam_tpu_torch.models.backbones.resnet import FrozenBatchNorm
 from protosam_tpu_torch.ops.mlp import mlp_fused
 from protosam_tpu_torch.ops.norm import layer_norm_tokens
 from protosam_tpu_torch.ops.quant import QuantLinear, dense_cls
@@ -108,15 +109,25 @@ def gelu_for(x: torch.Tensor) -> torch.Tensor:
     return nn.functional.gelu(x, approximate=approx)
 
 
-def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+def cast_compute(module: nn.Module, dtype: torch.dtype,
+                 master_weights: bool = False) -> nn.Module:
     """Cast a module's params to the compute dtype (the encoders hold no
-    buffers).  Normalisation params and ``QuantLinear`` params are not cast
-    at all: flax keeps the norms' params f32 under a bf16 build and uses
-    them unrounded, and the int8 path quantizes the f32 params, as JAX
-    ``QuantDense`` does; a round trip through bf16 would move them."""
+    buffers).  Normalisation params (frozen BatchNorm's too) and
+    ``QuantLinear`` params are not cast at all: flax keeps the norms'
+    params f32 under a bf16 build and uses them unrounded, and the int8
+    path quantizes the f32 params, as JAX ``QuantDense`` does; a round
+    trip through bf16 would move them.
+
+    ``master_weights=True`` (the training build) casts nothing: every
+    module with a ``compute_dtype`` (``models/master.Linear`` / ``Conv2d``,
+    the DINOv2 and ResNet encoders) computes in ``dtype`` from its f32
+    params, as flax does, so an optimizer steps f32 weights."""
     for m in module.modules():
-        if not isinstance(m, (QuantLinear, TokenLayerNorm, LayerNorm2d,
-                              nn.LayerNorm)):
+        if master_weights:
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        elif not isinstance(m, (QuantLinear, TokenLayerNorm, LayerNorm2d,
+                                nn.LayerNorm, FrozenBatchNorm)):
             for p in m.parameters(recurse=False):
                 p.data = p.data.to(dtype)
     return module

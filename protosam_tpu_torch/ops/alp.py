@@ -86,7 +86,15 @@ def alp_match_fused(qry_fts: torch.Tensor, protos: torch.Tensor,
     over transposed, (C, P) zero-padded to whole ``ALP_SPLIT``-prototype
     splits, so both of the kernel's operands are contiguous along its tile
     rows; each split writes per-pixel softmax partials to a scratch that
-    the kernel's combine pass merges."""
+    the kernel's combine pass merges.
+
+    K5 has no backward, as JAX's kernel has no VJP (JAX training keeps the
+    plain path, ``models/alpnet/fewshot.py:51-52``): under grad it raises
+    rather than fall back."""
+    if torch.is_grad_enabled() and (qry_fts.requires_grad
+                                    or protos.requires_grad):
+        raise RuntimeError("alp_match_fused has no backward: train with "
+                           "use_fused_alp=False (the plain ALP path)")
     if qry_fts.device.type == "cpu":
         return alp_match_fused_plain(qry_fts, protos, valid)
     n, c, h, w = qry_fts.shape

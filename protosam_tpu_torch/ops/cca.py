@@ -126,3 +126,15 @@ def component_confidences(stats: ComponentStats, fg_probs: torch.Tensor,
     num = torch.where(onehot, fg_probs[:, None], 0.0).sum(dim=(2, 3))
     den = pred.sum(dim=(1, 2))[:, None] + 1e-6
     return torch.where(stats.valid, num / den, 0.0)
+
+
+def keep_most_confident(stats: ComponentStats,
+                        conf: torch.Tensor) -> torch.Tensor:
+    """The reference's ``cca`` post-processing (util/utils.py:496-541; JAX
+    ``ops/cca.py:213``): per slice, the mask of the most confident
+    component, all False where there is none or its confidence is 0.
+    conf (B, K) -> (B, H, W) bool."""
+    best = torch.argmax(conf, dim=1)
+    any_conf = torch.amax(conf, dim=1) > 0
+    return ((stats.labels == (best + 1)[:, None, None])
+            & any_conf[:, None, None])

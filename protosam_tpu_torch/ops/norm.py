@@ -41,13 +41,9 @@ def layer_norm_rows_plain(x2: torch.Tensor, weight: torch.Tensor,
     return ((xf - m) * mul + bias.float()).to(out_dtype)
 
 
-def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
-                    bias: torch.Tensor, eps: float = 1e-6,
-                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """LayerNorm over the last axis of (N, C) rows: kernel K1
-    (``csrc/layer_norm.cu``) on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    out_dtype = out_dtype or x2.dtype
+def _layer_norm_launch(x2: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, eps: float,
+                       out_dtype: torch.dtype) -> torch.Tensor:
     if x2.device.type == "cpu":
         return layer_norm_rows_plain(x2, weight, bias, eps, out_dtype)
     n, c = x2.shape
@@ -65,7 +61,44 @@ def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+class _LayerNormRows(torch.autograd.Function):
+    """K1 forward; the backward is the VJP of the plain math, recomputed
+    (JAX ``_ln_tpu_bwd``, ``ops/norm.py:127-134``)."""
+
+    @staticmethod
+    def forward(ctx, x2, weight, bias, eps, out_dtype):
+        ctx.save_for_backward(x2, weight, bias)
+        ctx.eps, ctx.out_dtype = eps, out_dtype
+        return _layer_norm_launch(x2, weight, bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (x2, weight, bias)]
+            y = layer_norm_rows_plain(*ins, ctx.eps, ctx.out_dtype)
+            grads = torch.autograd.grad(y, ins, g)
+        layer_norm_rows.backward_calls += 1
+        return (*grads, None, None)
+
+
+def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, eps: float = 1e-6,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """LayerNorm over the last axis of (N, C) rows: kernel K1
+    (``csrc/layer_norm.cu``) on a CUDA tensor, the plain version on a CPU
+    tensor.  Under grad the forward is the same and the backward is the
+    plain version's VJP (counted in ``backward_calls``): gradients reach
+    ``x2`` in its dtype and the f32 ``weight`` / ``bias``."""
+    out_dtype = out_dtype or x2.dtype
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x2, weight, bias)):
+        return _LayerNormRows.apply(x2, weight, bias, eps, out_dtype)
+    return _layer_norm_launch(x2, weight, bias, eps, out_dtype)
+
+
 layer_norm_rows.launches = 0
+layer_norm_rows.backward_calls = 0
 
 
 def layer_norm_tokens(x: torch.Tensor, weight: torch.Tensor,

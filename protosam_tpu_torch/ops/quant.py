@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from protosam_tpu_torch import kernels
+from protosam_tpu_torch.models.master import Linear
 
 
 def quantize_rows_plain(x2: torch.Tensor) -> tuple[torch.Tensor,
@@ -183,6 +184,6 @@ class QuantLinear(nn.Linear):
 
 
 def dense_cls(quant: bool) -> type[nn.Linear]:
-    """The encoder blocks' dense layer: ``nn.Linear``, or ``QuantLinear``
+    """The encoder blocks' dense layer: ``Linear``, or ``QuantLinear``
     when the int8 path is on."""
-    return QuantLinear if quant else nn.Linear
+    return QuantLinear if quant else Linear

@@ -51,15 +51,16 @@ def union_us(intervals, lo: float, hi: float) -> float:
     return total
 
 
-def summarize(events: list[dict], top: int = 20) -> dict:
-    """Busy/idle share over the ``RANGE`` annotation and the top kernels
-    by summed device time, from chrome-trace events (``ts``/``dur`` in
-    µs)."""
+def summarize(events: list[dict], top: int = 20,
+              range_name: str = RANGE) -> dict:
+    """Busy/idle share over the ``range_name`` annotation and the top
+    kernels by summed device time, from chrome-trace events (``ts``/``dur``
+    in µs)."""
     spans = [e for e in events if e.get("ph") == "X"
-             and e.get("name") == RANGE
+             and e.get("name") == range_name
              and e.get("cat", "").lower() == "user_annotation"]
     if not spans:
-        raise ValueError(f"no {RANGE!r} range in the trace")
+        raise ValueError(f"no {range_name!r} range in the trace")
     lo = spans[0]["ts"]
     hi = lo + spans[0]["dur"]
     device = [e for e in events if e.get("ph") == "X"

@@ -1,7 +1,8 @@
 """JAX param trees of ``protosam_tpu`` -> the port's ``state_dict``s.
 
 The inverse of ``protosam_tpu.utils.torch_convert.convert_sam`` /
-``convert_dinov2``: params are nested dicts of numpy arrays.  Layout rules:
+``convert_dinov2`` / ``convert_deeplab_resnet101``: params are nested
+dicts of numpy arrays.  Layout rules:
 
   Dense kernel (in, out)            -> Linear weight (out, in)
   Conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW
@@ -88,8 +89,39 @@ def dinov2_state_dict(params: Mapping, prefix: str = ""
     return {prefix + k: v for k, v in sd.items()}
 
 
+def _bn(sd, key, p):
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        sd[f"{key}.{name}"] = _t(p[name])
+
+
+def resnet_state_dict(params: Mapping, prefix: str = ""
+                      ) -> dict[str, torch.Tensor]:
+    """DeepLab ResNet-101 flax params -> the reference wrapper's layout
+    (``backbone.<torchvision keys>``, ``localconv``), the keys JAX
+    ``convert_deeplab_resnet101`` reads (``utils/torch_convert.py:235``)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "backbone.conv1", params["conv1"])
+    _bn(sd, "backbone.bn1", params["bn1"])
+    for name, blk in params.items():
+        if not name.startswith("layer"):
+            continue
+        li, bi = name[len("layer"):].split("_")
+        b = f"backbone.layer{li}.{bi}"
+        for i in (1, 2, 3):
+            _conv(sd, f"{b}.conv{i}", blk[f"conv{i}"])
+            _bn(sd, f"{b}.bn{i}", blk[f"bn{i}"])
+        if "downsample_conv" in blk:
+            _conv(sd, f"{b}.downsample.0", blk["downsample_conv"])
+            _bn(sd, f"{b}.downsample.1", blk["downsample_bn"])
+    _conv(sd, "localconv", params["localconv"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
 def fewshot_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """FewShotSeg (DINOv2 backbone) flax params -> state_dict."""
+    """FewShotSeg flax params (DINOv2 or ResNet-101 backbone) ->
+    state_dict."""
+    if "localconv" in params["encoder"]:
+        return resnet_state_dict(params["encoder"], prefix="encoder.")
     return dinov2_state_dict(params["encoder"], prefix="encoder.")
 
 

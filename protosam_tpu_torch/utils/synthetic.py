@@ -15,7 +15,10 @@ So tensors are filled by role, with the roles of the JAX package's
 
 LayerNorm2d's weight is "everything else" there: its flax leaf is named
 ``weight``, so SAM's neck, mask-downscaling and output-upscaling norms get
-0.02·N(0, 1), as here.
+0.02·N(0, 1), as here.  The ResNet's frozen BatchNorm, which no JAX tool
+fills, takes the norms' roles for its weight and bias, 0.02·N for its
+running mean and 1 + 0.02·N for its running variance, which must stay
+positive.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from protosam_tpu_torch.models.backbones.resnet import FrozenBatchNorm
 from protosam_tpu_torch.models.io_protocol import ALPNetInput
 from protosam_tpu_torch.models.layers import LayerNorm2d, TokenLayerNorm
 from protosam_tpu_torch.ops.resize import resize_bilinear
 
-_NORMS = (TokenLayerNorm, nn.LayerNorm)
+_NORMS = (TokenLayerNorm, nn.LayerNorm, FrozenBatchNorm)
 
 
 def synthetic_state_dict(module: nn.Module, seed: int = 0,
@@ -46,7 +50,7 @@ def synthetic_state_dict(module: nn.Module, seed: int = 0,
     for key, t in module.state_dict().items():
         noise = rng.standard_normal(tuple(t.shape), dtype=np.float32)
         leaf = key.rsplit(".", 1)[-1]
-        if key in norm_weights or leaf == "gamma":
+        if key in norm_weights or leaf in ("gamma", "running_var"):
             vals = 1.0 + 0.02 * noise
         elif leaf == "bias":
             vals = np.zeros_like(noise)

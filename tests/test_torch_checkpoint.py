@@ -139,11 +139,16 @@ def test_hf_dinov2_maps_as_jax_maps_it(states):
 @pytest.mark.parametrize("prefix", ["", "encoder."], ids=["bare",
                                                           "alpnet"])
 def test_deeplab_snapshot_names_its_roadmap_item(tmp_path, prefix):
+    """ROADMAP §1 item 14 is done: a DeepLab ResNet-101 snapshot, bare or
+    ALPNet-prefixed, loads as ``FewShotSeg``'s encoder keys, without
+    torchvision's ``num_batches_tracked`` counters."""
     torch.save({f"{prefix}backbone.conv1.weight": torch.zeros(2, 3, 1, 1),
+                f"{prefix}backbone.bn1.num_batches_tracked": torch.tensor(3),
                 f"{prefix}localconv.weight": torch.zeros(2, 2, 1, 1)},
                tmp_path / "r.pth")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        checkpoint.load_params(str(tmp_path / "r.pth"))
+    sd = checkpoint.load_params(str(tmp_path / "r.pth"))
+    assert sorted(sd) == ["encoder.backbone.conv1.weight",
+                          "encoder.localconv.weight"]
 
 
 def test_orbax_directory_is_refused(tmp_path):

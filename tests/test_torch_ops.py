@@ -280,7 +280,10 @@ def test_import_pulls_in_no_jax():
         "for m in ('ops.mlp', 'ops.alp', 'eval.protosam_eval', "
         "'utils.config', 'data.medical', 'data.nifti', 'utils.checkpoint', "
         "'utils.detection', 'pipeline.protomedsam', 'ops.rotate', "
-        "'validation_protosam'):\n"
+        "'validation_protosam', 'train.step', 'train.trainer', "
+        "'train.lora', 'eval.alpnet_eval', 'eval.ttt', 'data.transforms', "
+        "'data.superpixel', 'models.backbones.resnet', 'models.master', "
+        "'training', 'validation'):\n"
         "    assert 'protosam_tpu_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)

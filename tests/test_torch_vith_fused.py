@@ -430,7 +430,9 @@ def test_build_models_passes_routes_and_seed():
     # an orbax checkpoint directory: JAX's format, not read by the port
     (dict(modelname="dinov2_t14", protosam_sam_ver="vit_t",
           reload_model_path="alpnet_orbax"), NotImplementedError),
-    (dict(protosam_sam_ver="vit_t"), KeyError),  # dlfcn_res101 backbone
+    # a coarse backbone the port does not have (the DeepLab ResNet-101,
+    # the Config default, is ported)
+    (dict(modelname="dlfcn_res50", protosam_sam_ver="vit_t"), KeyError),
 ], ids=["checkpoint", "resnet"])
 def test_build_models_refuses_what_is_not_ported(overrides, err):
     with pytest.raises(err):
