@@ -79,7 +79,25 @@ Phases, one line each; any failure exits non-zero and prints no result:
    8d ``run_alpnet_eval`` at DINOv2-L/14 672 with ``do_cca`` and
    test-time training on 2 query slices (K1-K3 launched, slices/s
    printed), and the tiny f32 model's eval on the card against the CPU
-   (metrics within 1e-6).
+   (metrics within 1e-6);
+9. the SAM tools and the server: 9a ``run_eval(base_model="SAM")``, the
+   oracle, with SAM ViT-B at 1024 in bf16 (``utils.synthetic.
+   structured_sam_state_dict`` weights) and JAX's 32² grid at 64 points a
+   batch on a fold of 20 scans of 6 x 256² slices (20 organ slices), once
+   with JAX's score filters and once with ``OPEN_FILTERS``; K1 and K4 must
+   launch, slices/s and records a slice are printed; 9b the generator with
+   crop_n_layers=1 and min_mask_region_area=100 on one 672² slice (K3 must
+   launch), then the tiny SAM in f32 on the card against the CPU (the same
+   keys and count, boxes within 1 px, masks at Dice >= 0.99); 9c the
+   predictor (a point, a box, the first call's logits as ``mask_input``)
+   at ViT-B, then the tiny SAM card vs CPU (Dice >= 0.99, IoU 1e-4); 9e the
+   ViT-B decoder exported with ``torch.export`` and reloaded, against
+   ``Sam.decode`` (1e-5, K1 launched by the program); 9d ``serve`` in a
+   thread with phase 4's flagship build: /healthz names the card, the
+   support, one slice and 8 slices, each request twice (ms printed), K1-K4
+   launched from request threads only, the volume's masks bit-equal to
+   ``forward_volume``'s; 9f ``tools/replay_goldens`` (the 36 recorded
+   reference masks in f32 and bf16; f32 Dice >= 0.99 everywhere).
 
 Then one JSON line with the kernels' numbers (each with its bound from
 ``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
@@ -843,7 +861,7 @@ def _numbers(row: dict) -> dict:
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, int8_launches: dict,
                   tools: dict, eval_launches: dict, train: dict,
-                  alpnet: dict) -> dict:
+                  alpnet: dict, sam_tools: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
@@ -863,7 +881,10 @@ def kernel_report(checks: list[dict], launches: dict,
     ``train_launches`` / ``train_backward_calls`` count the 4 steps of the
     DINOv2-L training run (phase 8a), ``alpnet_eval_launches`` the ALPNet
     eval with TTT (phase 8d); K1 and K2 carry their backward's time a call
-    (phase 8b) beside the library's."""
+    (phase 8b) beside the library's.  ``sam_tools_launches`` counts the
+    oracle, the generator and the predictor (9a-9c, summed; by sub-phase
+    in ``sam_tools_launches_by_phase``), ``serve_launches`` the server's
+    requests (9d)."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -880,6 +901,12 @@ def kernel_report(checks: list[dict], launches: dict,
                  "train_backward_calls":
                      train["backward_calls"].get(name, 0),
                  "alpnet_eval_launches": alpnet["launches"].get(name, 0),
+                 "sam_tools_launches": sum(
+                     c.get(name, 0) for c in sam_tools["sam_tools"].values()),
+                 "sam_tools_launches_by_phase": {
+                     k: c.get(name, 0)
+                     for k, c in sam_tools["sam_tools"].items()},
+                 "serve_launches": sam_tools["serve"].get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -1002,17 +1029,18 @@ FOLD_ORGANS = {1: (96, 80), 2: (160, 176), 3: (80, 176), 4: (176, 80)}
 FOLD_NAMES = ["BG", "LIVER", "RK", "LK", "SPLEEN"]
 
 
-def write_fold(base_dir: str, seed: int = 0) -> str:
+def write_fold(base_dir: str, seed: int = 0, depth: int = FOLD_Z) -> str:
     """The synthetic CHAOS-T2 fold (the recipe of the tests' synthetic
-    dataset at this size), written with the port's ``write_nii``: image,
-    label and superpixel volumes and the classmaps the data layer reads."""
+    dataset at this size), ``depth`` slices a scan, written with the port's
+    ``write_nii``: image, label and superpixel volumes and the classmaps
+    the data layer reads."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
     from protosam_tpu_torch.data.nifti import NiftiImage, write_nii
 
-    zz, yy, xx = np.mgrid[:FOLD_Z, :FOLD_HW, :FOLD_HW].astype(np.float32)
-    cz, rz = (FOLD_Z - 1) / 2.0, FOLD_Z / 3.0
+    zz, yy, xx = np.mgrid[:depth, :FOLD_HW, :FOLD_HW].astype(np.float32)
+    cz, rz = (depth - 1) / 2.0, depth / 3.0
     # the superpixel maps the trainer reads: a 4 x 4 grid of blocks (ids
     # 1-16), the tests' recipe
     cell = FOLD_HW // 4
@@ -1020,9 +1048,9 @@ def write_fold(base_dir: str, seed: int = 0) -> str:
 
     def scan(i: int) -> dict:
         rng = np.random.default_rng(seed + i)
-        img = rng.normal(100, 20, (FOLD_Z, FOLD_HW, FOLD_HW)).astype(
+        img = rng.normal(100, 20, (depth, FOLD_HW, FOLD_HW)).astype(
             np.float32)
-        lbl = np.zeros((FOLD_Z, FOLD_HW, FOLD_HW), np.int16)
+        lbl = np.zeros((depth, FOLD_HW, FOLD_HW), np.int16)
         for cls, (cy, cx) in FOLD_ORGANS.items():
             r = 4.0 * (7 + (i + cls) % 3)
             blob = (((yy - cy) / r) ** 2 + ((xx - cx) / r) ** 2
@@ -1038,7 +1066,7 @@ def write_fold(base_dir: str, seed: int = 0) -> str:
         zs = {FOLD_NAMES[c]: sorted(int(z) for z in
                                     np.unique(np.where(lbl == c)[0]))
               for c in FOLD_ORGANS}
-        zs["BG"] = list(range(FOLD_Z))
+        zs["BG"] = list(range(depth))
         return zs
 
     with ThreadPoolExecutor(8) as ex:
@@ -1594,7 +1622,382 @@ def phase_alpnet_eval(counters: dict, smi: str, fold: str) -> dict:
             "slices_per_sec": n / wall, "classDice": res["classDice"]}
 
 
-def main() -> int:
+# the kernels the SAM tools must launch (9a-9c: SAM's encoder); 9b's small
+# regions add K3
+SAM_KERNELS = ["layer_norm_rows", "relpos_patch_attention"]
+ORACLE_DEPTH = 6    # 9a's fold: 20 scans of 6 x 256² slices
+# the generator's score filters in 9a's second run and 9b: about half of
+# the structured weights' candidates pass each (predicted IoU -0.28 to
+# 0.54, stability 0.13 to 0.44 at ViT-B 1024)
+OPEN_FILTERS = dict(pred_iou_thresh=0.0, stability_score_thresh=0.3)
+SCORE_TOL = 1e-4    # card against CPU: predicted IoU, low-res logits
+
+
+def counted_call(tag: str, fn, counters: dict, required: list[str]):
+    """``fn()`` with every count zeroed just before and read just after;
+    the kernels of ``required`` must have launched.  Returns (its result,
+    the counts, the wall seconds)."""
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    log(f"{tag}: kernel launches {launches}")
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    return out, launches, wall
+
+
+def uint8_slice(size: int, seed: int) -> np.ndarray:
+    """A smooth synthetic slice as an (size, size, 3) uint8 image."""
+    from protosam_tpu_torch.utils.synthetic import smooth_volume
+
+    x = smooth_volume(1, size, seed)[0].permute(1, 2, 0).numpy()
+    return ((x - x.min()) / (x.max() - x.min()) * 255).astype(np.uint8)
+
+
+def tiny_image() -> np.ndarray:
+    """The CPU tests' AMG image: recorded slice 2's query, 200 x 240."""
+    from protosam_tpu_torch.utils.synthetic import synthetic_agreement_case
+
+    q = synthetic_agreement_case(2)[0][0].transpose(1, 2, 0)[:200, :240]
+    return ((q - q.min()) / (q.max() - q.min()) * 255).astype(np.uint8)
+
+
+def phase_oracle(counters: dict, smi: str, tmp: str):
+    """9a: ``run_eval(base_model="SAM")``, the oracle, with SAM ViT-B at
+    1024 in bf16 (seeded weights of ``utils.synthetic.
+    structured_sam_state_dict``, under which one-point masks cover a
+    quarter to two-fifths of the frame: JAX's recipe gives empty ones) and
+    JAX's grid (32², 64 points a batch) on a CHAOS-T2-like fold of 20
+    scans of 6 x 256² slices (its organ slices of fold 0's test scans,
+    20): once with JAX's score filters (0.88, 0.95), which no candidate of
+    random weights passes, and once with them at OPEN_FILTERS, so that
+    the oracle picks among real records.
+    Returns the oracle's SAM (for 9b, 9c and 9e), the counts of the second
+    run and its numbers."""
+    import os
+
+    from protosam_tpu_torch.eval.protosam_eval import (SAM_IMAGE_SIZE,
+                                                       build_sam_oracle,
+                                                       run_eval)
+    from protosam_tpu_torch.models.sam.registry import build_sam
+    from protosam_tpu_torch.utils.synthetic import \
+        structured_sam_state_dict
+
+    fold = os.path.join(tmp, "chaos_oracle")
+    os.makedirs(fold)
+    write_fold(fold, seed=1, depth=ORACLE_DEPTH)
+    cfg = eval_config(fold, "sam_b", base_model="SAM")
+    with torch.device("meta"):
+        state = structured_sam_state_dict(build_sam("vit_b",
+                                                    SAM_IMAGE_SIZE),
+                                          cfg.seed)
+    numbers = {}
+    for tag, kw in (("JAX's score filters", {}),
+                    ("score filters open", OPEN_FILTERS)):
+        wrapper = build_sam_oracle(cfg, sam_state=state, **kw)
+        records, generate = [], wrapper.amg.generate
+
+        def counting(*args, _generate=generate, _records=records,
+                     **kwargs):
+            out = _generate(*args, **kwargs)
+            _records.append(len(out))
+            return out
+
+        wrapper.amg.generate = counting
+        result, launches, wall = counted_call(
+            f"phase 9a oracle ({tag})", lambda: run_eval(cfg, pipe=wrapper),
+            counters, SAM_KERNELS)
+        log(f"phase 9a oracle SAM ViT-B 1024 bf16, {tag} [{smi}]: "
+            f"{result['n_slices']} slices, meanDice "
+            f"{result['mar_val_batches_meanDice']:.5f}, "
+            f"{result['slices_per_sec']:.3f} slices/s ({wall:.1f} s in all), "
+            f"AMG records per slice mean {np.mean(records):.2f} (min "
+            f"{min(records)}, max {max(records)})")
+        if not result["n_slices"] or len(records) != result["n_slices"] \
+                or not 0.0 <= result["mar_val_batches_meanDice"] <= 1.0:
+            raise AssertionError(f"9a: {result}")
+        numbers[tag] = {"slices_per_sec": result["slices_per_sec"],
+                        "records_per_slice": float(np.mean(records)),
+                        "meanDice": result["mar_val_batches_meanDice"]}
+    if not numbers["score filters open"]["records_per_slice"]:
+        raise AssertionError("9a: no records with the filters open")
+    return wrapper.sam, launches, numbers
+
+
+def match_records(got: list, want: list, tag: str) -> None:
+    """Card records against CPU records: the same keys and count; each
+    CPU record's card record (same point and crop, the closest predicted
+    IoU) within SCORE_TOL, its box within 1 px, its mask at Dice >= 0.99."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{tag}: {len(got)} records, CPU {len(want)}")
+    worst = (1.0, 0.0, 0.0)
+    for w in want:
+        g = min((g for g in got if g["point_coords"] == w["point_coords"]
+                 and g["crop_box"] == w["crop_box"]),
+                key=lambda g: abs(g["predicted_iou"] - w["predicted_iou"]),
+                default=None)
+        if g is None:
+            raise AssertionError(f"{tag}: no card record at the CPU "
+                                 f"record's point {w['point_coords']}")
+        if set(g) != set(w):
+            raise AssertionError(f"{tag}: keys {set(g)} vs {set(w)}")
+        d = dice(torch.from_numpy(g["segmentation"]),
+                 torch.from_numpy(w["segmentation"]))
+        box = max(abs(a - b) for a, b in zip(g["bbox"], w["bbox"]))
+        iou = abs(g["predicted_iou"] - w["predicted_iou"])
+        worst = (min(worst[0], d), max(worst[1], box), max(worst[2], iou))
+    log(f"{tag}: {len(got)} records match the CPU's: Dice min "
+        f"{worst[0]:.5f}, bbox max diff {worst[1]:.1f} px, predicted IoU "
+        f"max diff {worst[2]:.2e}")
+    if worst[0] < 0.99 or worst[1] > 1.0 or worst[2] > SCORE_TOL:
+        raise AssertionError(f"{tag}: card and CPU records disagree")
+
+
+def phase_amg(counters: dict, smi: str, sam) -> dict:
+    """9b: the generator with crop_n_layers=1 and min_mask_region_area=100
+    on one 672² slice with 9a's SAM ViT-B (the score filters open, as in
+    9a's second run, so that NMS, the crops and the small-region pass see
+    real records); K3 must launch.  Then the tiny SAM in f32 on the card
+    against the CPU."""
+    from protosam_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
+    from protosam_tpu_torch.utils.synthetic import structured_tiny_sam
+
+    gen = SamAutomaticMaskGenerator(sam, crop_n_layers=1,
+                                    min_mask_region_area=100, **OPEN_FILTERS)
+    img = uint8_slice(672, seed=12)
+    recs, launches, wall = counted_call(
+        "phase 9b AMG ViT-B 1024 bf16, 672² slice, crops, small regions",
+        lambda: gen.generate(image=img), counters,
+        SAM_KERNELS + ["cca_label"])
+    areas = [r["area"] for r in recs]
+    log(f"phase 9b [{smi}]: {len(recs)} records in {wall:.2f} s, areas "
+        f"{areas[:5]}...{areas[-3:]}")
+    if not recs or recs[0]["segmentation"].shape != (672, 672):
+        raise AssertionError("9b: no records")
+
+    kw = dict(points_per_side=8, points_per_batch=32, pred_iou_thresh=0.0,
+              stability_score_thresh=0.5, crop_n_layers=1,
+              min_mask_region_area=100)
+    out = {dev: SamAutomaticMaskGenerator(structured_tiny_sam(dev), **kw)
+           .generate(image=tiny_image(), image_size=256)
+           for dev in ("cuda", "cpu")}
+    match_records(out["cuda"], out["cpu"],
+                  "phase 9b tiny SAM f32 card vs CPU")
+    return launches
+
+
+def phase_predictor(counters: dict, sam) -> dict:
+    """9c: ``set_image`` and ``predict`` with SAM ViT-B at 1024 (a point, a
+    box, then the point with the first call's best low-res logits as
+    ``mask_input``); then the tiny SAM in f32 on the card against the CPU
+    (masks at Dice >= 0.99, iou_predictions within SCORE_TOL)."""
+    from protosam_tpu_torch.models.sam.predictor import SamPredictor
+    from protosam_tpu_torch.utils.synthetic import seeded_tiny_sam
+
+    def drive(pred, img, point, box):
+        pred.set_image(img)
+        m1, iou1, low1 = pred.predict(point_coords=[point], point_labels=[1])
+        m2, iou2, _ = pred.predict(box=box, multimask_output=False)
+        best = int(np.argmax(iou1))
+        m3, iou3, _ = pred.predict(point_coords=[point], point_labels=[1],
+                                   mask_input=low1[best][None],
+                                   multimask_output=False)
+        return [(m1, iou1), (m2, iou2), (m3, iou3)]
+
+    pred = SamPredictor(sam)
+    out, launches, wall = counted_call(
+        "phase 9c predictor ViT-B 1024 bf16",
+        lambda: drive(pred, uint8_slice(672, seed=13), [300.0, 340.0],
+                      [200.0, 220.0, 480.0, 500.0]), counters, SAM_KERNELS)
+    shapes = [m.shape for m, _ in out]
+    log(f"phase 9c: masks {shapes}, iou {[np.round(i, 4).tolist() for _, i in out]}, "
+        f"{wall:.2f} s")
+    if shapes != [(3, 672, 672), (1, 672, 672), (1, 672, 672)] or \
+            not all(np.isfinite(i).all() for _, i in out):
+        raise AssertionError("9c: predictor outputs")
+
+    img = tiny_image()[:180, :230]
+    res = {dev: drive(SamPredictor(seeded_tiny_sam(dev)), img,
+                      [90.0, 80.0], [40.0, 30.0, 160.0, 150.0])
+           for dev in ("cuda", "cpu")}
+    dices = [dice(torch.from_numpy(a), torch.from_numpy(b))
+             for (ma, _), (mb, _) in zip(res["cuda"], res["cpu"])
+             for a, b in zip(ma, mb)]
+    iou_err = max(float(np.abs(ia - ib).max()) for (_, ia), (_, ib) in
+                  zip(res["cuda"], res["cpu"]))
+    log(f"phase 9c tiny SAM f32 card vs CPU: mask Dice min {min(dices):.5f}, "
+        f"iou_predictions max diff {iou_err:.2e}")
+    if min(dices) < 0.99 or iou_err > SCORE_TOL:
+        raise AssertionError("9c: card and CPU predictors disagree")
+    return launches
+
+
+def phase_serve(counters: dict, smi: str) -> dict:
+    """9d: ``serve`` on 127.0.0.1 in a thread with phase 4's flagship build
+    and weights: /healthz names the card; /register_support; /segment one
+    slice, then phase 4's 8 slices.  The volume's masks must be bit-equal
+    to ``forward_volume`` on the same build and slices, and K1-K4 must
+    launch, each from a request thread.  Each request is made twice; the
+    ms of both are printed."""
+    import io
+    import threading
+    import urllib.request
+
+    from protosam_tpu_torch import kernels
+    from protosam_tpu_torch.serve import serve
+    from protosam_tpu_torch.tools.pipeline_profile import build_config
+    from protosam_tpu_torch.utils.synthetic import (smooth_volume,
+                                                    synthetic_episode)
+
+    pipe = build_config("flagship", "cuda")
+    vol = smooth_volume(N_SLICES, 672, seed=6)
+    inp = synthetic_episode(672, "cpu", 7)
+    httpd = serve(pipe, host="127.0.0.1", port=0, slice_batch=SLICE_BATCH)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=payload,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    def npy(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        return buf.getvalue()
+
+    threads, launch = set(), kernels.launch
+
+    def recording(*args, **kwargs):
+        threads.add(threading.current_thread().name)
+        return launch(*args, **kwargs)
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        log(f"phase 9d serve: /healthz {health}")
+        if health["device_name"] != torch.cuda.get_device_name(0):
+            raise AssertionError("9d: /healthz does not name the card")
+        buf = io.BytesIO()
+        np.savez(buf, images=inp.supp_imgs.numpy(),
+                 masks=inp.fore_mask.numpy())
+        kernels.launch = recording
+        zero_counts(counters)
+        post("/register_support", buf.getvalue())
+        ms = {"single": [], "volume": []}
+        for _ in range(2):
+            for name, arr in (("single", vol[0].numpy()),
+                              ("volume", vol.numpy())):
+                t0 = time.perf_counter()
+                out = np.load(io.BytesIO(post("/segment", npy(arr))))
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "volume":
+                    volume = out
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+    finally:
+        kernels.launch = launch
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    log(f"phase 9d serve: kernel launches {launches} from threads "
+        f"{sorted(threads)}")
+    log(f"phase 9d serve [{smi}]: /segment one 672² slice "
+        f"{ms['single'][0]:.1f} / {ms['single'][1]:.1f} ms, {N_SLICES} "
+        f"slices {ms['volume'][0]:.1f} / {ms['volume'][1]:.1f} ms "
+        f"({ms['volume'][1] / N_SLICES:.1f} ms/slice) per request, first / "
+        f"second")
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] == 0]
+    if missing or not threads or threading.main_thread().name in threads:
+        raise AssertionError(f"9d: kernels {missing} not launched, or not "
+                             f"from request threads: {threads}")
+    with torch.no_grad():
+        want, _ = pipe.forward_volume(vol.cuda(), inp.to("cuda"),
+                                      slice_batch=SLICE_BATCH)
+    same = np.array_equal(volume, want.cpu().numpy())
+    log(f"phase 9d serve: volume masks bit-equal to forward_volume: {same} "
+        f"(fg share {volume.mean():.4f})")
+    if not same:
+        raise AssertionError("9d: the server's masks differ from "
+                             "forward_volume's")
+    return {"launches": launches, "ms": ms}
+
+
+def phase_export(counters: dict, sam) -> None:
+    """9e: the ViT-B decoder exported on the card, reloaded, against
+    ``Sam.decode`` in f32 (1e-5); the program's LayerNorms must launch K1
+    (the ``ptk::layer_norm_rows`` op)."""
+    from protosam_tpu_torch.utils.export import export_decoder, load_exported
+
+    t0 = time.perf_counter()
+    blob = export_decoder(sam, num_points=2)
+    fn = load_exported(blob)
+    g = torch.Generator().manual_seed(14)
+    grid, dev = sam.image_size // 16, next(sam.parameters()).device
+    args = tuple(t.to(dev) for t in (
+        torch.randn(1, 256, grid, grid, generator=g),
+        torch.rand(1, 2, 2, generator=g) * sam.image_size,
+        torch.tensor([[1, 0]], dtype=torch.int32),
+        torch.tensor([[0.1, 0.2, 0.6, 0.7]]) * sam.image_size))
+    with torch.no_grad():
+        got, launches, _ = counted_call("phase 9e exported decoder",
+                                        lambda: fn(*args), counters,
+                                        ["layer_norm_rows"])
+        want = sam.decode(*args[:4], None, False, False)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    log(f"phase 9e export: {len(blob) / 2**20:.1f} MiB program, reloaded "
+        f"decoder vs Sam.decode max abs err {err:.2e} (bound 1e-5), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if err > 1e-5:
+        raise AssertionError("9e: the exported decoder disagrees")
+
+
+def phase_goldens(smi: str, tmp: str) -> dict:
+    """9f: the recorded reference masks replayed on the card, f32 and
+    bf16 (``tools/replay_goldens.py``): f32 >= 0.99 everywhere."""
+    import os
+
+    from protosam_tpu_torch.tools import replay_goldens
+
+    path = os.path.join(tmp, "replay.json")
+    rc = replay_goldens.main(["--out", path])
+    with open(path) as f:
+        result = json.load(f)
+    for tag, row in result["configs"].items():
+        log(f"phase 9f goldens [{smi}] {tag}: f32 min "
+            f"{row['f32_vs_reference']['min']:.5f}, bf16 min "
+            f"{row['bf16_vs_reference']['min']:.5f}, bf16 vs f32 min "
+            f"{row['bf16_vs_f32']['min']:.5f}")
+    if rc or not result["passes"]:
+        raise AssertionError("9f: the golden replay missed its bars")
+    return result
+
+
+def phase_sam_tools(counters: dict, smi: str, tmp: str) -> dict:
+    """Phase 9: the SAM tools (9a-9c), the server (9d), the export (9e)
+    and the golden replay (9f)."""
+    t0 = time.perf_counter()
+    sam, oracle, oracle_numbers = phase_oracle(counters, smi, tmp)
+    amg = phase_amg(counters, smi, sam)
+    predictor = phase_predictor(counters, sam)
+    phase_export(counters, sam)
+    del sam
+    served = phase_serve(counters, smi)
+    goldens = phase_goldens(smi, tmp)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return {"sam_tools": {"9a": oracle, "9b": amg, "9c": predictor},
+            "serve": served["launches"], "oracle": oracle_numbers,
+            "serve_ms": served["ms"], "goldens": goldens}
+
+
+def make_counters() -> dict:
+    """kernel -> (its wrapper, the wrapper's count of its launches)"""
     from protosam_tpu_torch.ops.alp import alp_match_fused
     from protosam_tpu_torch.ops.attention import \
         masked_flash_attention_packed
@@ -1605,8 +2008,7 @@ def main() -> int:
                                               quantize_rows)
     from protosam_tpu_torch.ops.vitdet_flash import relpos_patch_attention
 
-    # kernel -> (its wrapper, the wrapper's count of its launches)
-    counters = {
+    return {
         "layer_norm_rows": (layer_norm_rows, "launches"),
         "packed_masked_attention": (masked_flash_attention_packed,
                                     "launches"),
@@ -1620,6 +2022,10 @@ def main() -> int:
         "bf16_scores": (masked_flash_attention_packed,
                         "bf16_score_launches"),
     }
+
+
+def main() -> int:
+    counters = make_counters()
     smi = phase_device()
     phase_build()
     checks = phase_kernels()
@@ -1633,8 +2039,9 @@ def main() -> int:
         eval_launches, fold = phase_eval(counters, smi, tmp)
         train = phase_train(counters, smi, tmp, fold)
         alpnet = phase_alpnet_eval(counters, smi, fold)
+        sam_tools = phase_sam_tools(counters, smi, tmp)
     log(json.dumps(kernel_report(checks, launches, flagship, int8, tools,
-                                 eval_launches, train, alpnet)))
+                                 eval_launches, train, alpnet, sam_tools)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

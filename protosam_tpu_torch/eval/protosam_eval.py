@@ -17,6 +17,10 @@ aggregate per case and overall.  Two modes:
 
 Either way a chunk's queries reach the device in one host-to-device copy
 and its masks come back in one copy.
+
+``base_model="SAM"`` runs the oracle baseline instead
+(``run_eval_sam_oracle``): SAM's automatic masks of each slice, the best
+against the label scored.
 """
 
 from __future__ import annotations
@@ -33,8 +37,11 @@ import torch
 from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       ORGAN_CLASS)
 from protosam_tpu_torch.data.medical import med_fewshot_val
-from protosam_tpu_torch.entry import build_pipeline
+from protosam_tpu_torch.entry import _allocate, build_pipeline
 from protosam_tpu_torch.models.io_protocol import ALPNetInput
+from protosam_tpu_torch.models.layers import cast_compute
+from protosam_tpu_torch.models.sam.registry import build_sam
+from protosam_tpu_torch.models.samwrapper import SamWrapper
 from protosam_tpu_torch.pipeline.protomedsam import ProtoMedSAM
 from protosam_tpu_torch.pipeline.protosam import ProtoSAM, ProtoSAMConfig
 from protosam_tpu_torch.utils.checkpoint import load_params
@@ -112,17 +119,17 @@ def resolve_test_class(cfg: Config) -> int:
     return ORGAN_CLASS[base][cfg.curr_cls]
 
 
-def run_eval(cfg: Config, pipe: ProtoSAM | None = None,
+def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
              mode: str = "volume", profile: bool = False) -> dict:
     """Segment the fold of ``cfg`` and score it; ``pipe`` defaults to
-    ``build_models(cfg)`` on the card and runs wherever its weights are."""
-    if cfg.base_model.upper() == "SAM":
-        raise NotImplementedError("the base_model=SAM oracle needs the SAM "
-                                  "tools, not ported yet (ROADMAP §1 item "
-                                  "25, with item 15)")
+    ``build_models(cfg)`` on the card and runs wherever its weights are.
+    With ``base_model="SAM"`` it is the oracle's ``SamWrapper``
+    (``run_eval_sam_oracle``)."""
     if cfg.dataset.lower() == "polyps":
         raise NotImplementedError("the polyp data layer is not ported yet "
                                   "(ROADMAP §1 item 24)")
+    if cfg.base_model.upper() == "SAM":
+        return run_eval_sam_oracle(cfg, wrapper=pipe)
     base = cfg.dataset.split("_")[0]
     suffix = "_672" if cfg.input_size[0] > 256 else ""
     data_key = base + suffix if base + suffix in cfg.data_dirs else cfg.dataset
@@ -232,3 +239,67 @@ def run_eval(cfg: Config, pipe: ProtoSAM | None = None,
                   "w") as f:
             json.dump(result, f, indent=2)
     return result
+
+
+def build_sam_oracle(cfg: Config, device: torch.device | str = "cuda",
+                     sam_state: dict | None = None,
+                     **amg_kwargs) -> SamWrapper:
+    """The oracle's SAM (``SAM_VERSIONS.get(cfg.protosam_sam_ver,
+    "vit_b")`` at 1024) on ``device``, its encoder in ``cfg.dtype``, with
+    the weights of ``sam_state``, else of ``cfg.reload_model_path`` (a SAM
+    ``.pth``, ``utils.checkpoint.load_params``), else seeded from
+    ``cfg.seed``; wrapped with the automatic mask generator's
+    ``amg_kwargs``."""
+    if sam_state is None and cfg.reload_model_path:
+        sam_state = load_params(cfg.reload_model_path)
+    with torch.device("meta"):
+        sam = build_sam(SAM_VERSIONS.get(cfg.protosam_sam_ver, "vit_b"),
+                        image_size=SAM_IMAGE_SIZE)
+    _allocate(sam, device, cfg.seed, sam_state)
+    cast_compute(sam.image_encoder, torch.bfloat16
+                 if cfg.dtype == "bfloat16" else torch.float32)
+    return SamWrapper(sam, **amg_kwargs)
+
+
+def run_eval_sam_oracle(cfg: Config, wrapper: SamWrapper | None = None
+                        ) -> dict:
+    """base_model=SAM oracle baseline (reference ProtoSAM.py:170-179 +
+    SamWrapper.py; JAX ``run_eval_sam_oracle``): every mask the automatic
+    mask generator finds in a slice, the best against the label scored.
+    ``wrapper`` defaults to ``build_sam_oracle(cfg)`` on the card.  Every
+    test slice is a query (support scans included, as in JAX); the slices
+    reach SAM as uint8 min-max images."""
+    base = cfg.dataset.split("_")[0]
+    suffix = "_672" if cfg.input_size[0] > 256 else ""
+    data_key = base + suffix if base + suffix in cfg.data_dirs else cfg.dataset
+    te_dataset, _ = med_fewshot_val(
+        dataset_name=base, base_dir=cfg.data_dir(data_key),
+        idx_split=cfg.eval_fold,
+        act_labels=sorted(DATASET_INFO[base]["LABEL_GROUP"]["pa_all"]),
+        npart=cfg.n_sup_part, image_size=cfg.input_size[0],
+        use_clahe=cfg.use_clahe, use_3_slices=cfg.use_3_slices)
+    te_dataset.set_curr_cls(resolve_test_class(cfg))
+    wrapper = wrapper or build_sam_oracle(cfg)
+
+    dice_list, cases = [], defaultdict(list)
+    t0 = time.time()
+    for idx in range(len(te_dataset)):
+        s = te_dataset[idx]
+        if cfg.skip_no_organ_slices and s["label"].max() < 1:
+            continue
+        img = np.asarray(s["image"]).transpose(1, 2, 0)
+        img = ((img - img.min()) / (img.max() - img.min() + 1e-9) * 255
+               ).astype(np.uint8)
+        pred = wrapper(img, s["label"])
+        m = dice_iou_precision_recall(pred, s["label"])
+        dice_list.append(m["dice"])
+        cases[s["case"]].append(m["dice"])
+    elapsed = time.time() - t0
+    return {
+        "mar_val_batches_meanDice": float(np.mean(dice_list))
+        if dice_list else float("nan"),
+        "cases": {k: {"meanDice": float(np.mean(v))} for k, v in
+                  cases.items()},
+        "n_slices": len(dice_list),
+        "slices_per_sec": len(dice_list) / elapsed if elapsed > 0 else 0.0,
+    }

@@ -81,6 +81,9 @@ class Block(nn.Module):
 class DinoVisionTransformer(nn.Module):
     # set with f32 master weights (``cast_compute(..., master_weights=True)``)
     compute_dtype: torch.dtype | None = None
+    # left f32 by ``cast_compute``: JAX resizes the f32 param (vit.py:
+    # 176-183, 245-247) and casts the result
+    f32_params = ("pos_embed",)
 
     def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16,

@@ -116,7 +116,9 @@ def cast_compute(module: nn.Module, dtype: torch.dtype,
     ``QuantLinear`` params are not cast at all: flax keeps the norms'
     params f32 under a bf16 build and uses them unrounded, and the int8
     path quantizes the f32 params, as JAX ``QuantDense`` does; a round
-    trip through bf16 would move them.
+    trip through bf16 would move them.  Nor are the params a module names
+    in ``f32_params`` (DINOv2's ``pos_embed``, which JAX resizes in f32
+    from the f32 param before the cast).
 
     ``master_weights=True`` (the training build) casts nothing: every
     module with a ``compute_dtype`` (``models/master.Linear`` / ``Conv2d``,
@@ -128,6 +130,8 @@ def cast_compute(module: nn.Module, dtype: torch.dtype,
                 m.compute_dtype = dtype
         elif not isinstance(m, (QuantLinear, TokenLayerNorm, LayerNorm2d,
                                 nn.LayerNorm, FrozenBatchNorm)):
-            for p in m.parameters(recurse=False):
-                p.data = p.data.to(dtype)
+            keep = getattr(m, "f32_params", ())
+            for name, p in m.named_parameters(recurse=False):
+                if name not in keep:
+                    p.data = p.data.to(dtype)
     return module

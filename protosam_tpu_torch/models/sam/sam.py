@@ -4,6 +4,7 @@ predictor flow the pipeline drives)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -11,9 +12,14 @@ from torch import nn
 from protosam_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from protosam_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from protosam_tpu_torch.models.sam.prompt_encoder import PromptEncoder
+from protosam_tpu_torch.ops.resize import (longest_side_size,
+                                           resize_bilinear,
+                                           resize_bilinear_antialias,
+                                           resize_nearest)
 
 DEFAULT_PIXEL_MEAN = (123.675, 116.28, 103.53)
 DEFAULT_PIXEL_STD = (58.395, 57.12, 57.375)
+MASK_THRESHOLD = 0.0
 
 
 class Sam(nn.Module):
@@ -75,3 +81,31 @@ def preprocess(x: torch.Tensor, img_size: int = 1024,
     x = (x - mean) / std
     h, w = x.shape[-2:]
     return F.pad(x, (0, img_size - w, 0, img_size - h))
+
+
+def encode_image_array(sam: Sam, image) -> tuple[torch.Tensor,
+                                                 tuple[int, int]]:
+    """An (H, W, 3) pixel array through the predictor's ``set_image``
+    path: the antialiased longest-side resize to ``sam.image_size``, the
+    normalisation and padding, the encoder, on the model's device.
+    Returns (embedding (1, 256, h, w), the resized (nh, nw) frame)."""
+    h, w = image.shape[:2]
+    nh, nw = longest_side_size(h, w, sam.image_size)
+    dev = next(sam.parameters()).device
+    x = torch.as_tensor(np.ascontiguousarray(image), dtype=torch.float32,
+                        device=dev)[None].permute(0, 3, 1, 2)
+    x = resize_bilinear_antialias(x, (nh, nw))
+    return sam.encode_image(preprocess(x, sam.image_size)), (nh, nw)
+
+
+def postprocess_masks(masks: torch.Tensor, input_size: tuple[int, int],
+                      original_size: tuple[int, int], img_size: int = 1024,
+                      mode: str = "bilinear") -> torch.Tensor:
+    """Upscale low-res (B, M, 4h, 4w) logits to the original frame: to the
+    square encoder frame, crop the valid ``input_size``, resize to
+    ``original_size``.  ``mode='bilinear'`` is the upstream pip SAM's,
+    ``'nearest'`` the reference fork's (sam.py:154-158)."""
+    rs = resize_bilinear if mode == "bilinear" else resize_nearest
+    masks = rs(masks, (img_size, img_size))
+    masks = masks[..., :input_size[0], :input_size[1]]
+    return rs(masks, original_size)

@@ -82,6 +82,21 @@ class _LayerNormRows(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@torch.library.custom_op("ptk::layer_norm_rows", mutates_args=())
+def _layer_norm_op(x2: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, eps: float,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 as one opaque operator, for programs that ``torch.export``
+    traces (``utils/export.py``): the program records this op, and running
+    it launches K1 on a CUDA tensor (the plain version on a CPU one)."""
+    return _layer_norm_launch(x2, weight, bias, eps, out_dtype)
+
+
+@_layer_norm_op.register_fake
+def _(x2, weight, bias, eps, out_dtype):
+    return x2.new_empty(x2.shape, dtype=out_dtype)
+
+
 def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, eps: float = 1e-6,
                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -89,8 +104,12 @@ def layer_norm_rows(x2: torch.Tensor, weight: torch.Tensor,
     (``csrc/layer_norm.cu``) on a CUDA tensor, the plain version on a CPU
     tensor.  Under grad the forward is the same and the backward is the
     plain version's VJP (counted in ``backward_calls``): gradients reach
-    ``x2`` in its dtype and the f32 ``weight`` / ``bias``."""
+    ``x2`` in its dtype and the f32 ``weight`` / ``bias``.  While
+    ``torch.export`` traces, the call is the opaque ``ptk::layer_norm_rows``
+    op, which launches K1 when the exported program runs."""
     out_dtype = out_dtype or x2.dtype
+    if torch.compiler.is_exporting():
+        return _layer_norm_op(x2, weight, bias, eps, out_dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x2, weight, bias)):
         return _LayerNormRows.apply(x2, weight, bias, eps, out_dtype)

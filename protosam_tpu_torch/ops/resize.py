@@ -147,3 +147,11 @@ def resize_bilinear_then_nearest(x: torch.Tensor, mid: tuple[int, int],
     y = torch.einsum("...hw,jw->...hj", x.float(), wc)
     y = torch.einsum("...hj,ih->...ij", y, wr)
     return y.to(x.dtype)
+
+
+def longest_side_size(h: int, w: int, target_length: int) -> tuple[int, int]:
+    """Output size of a longest-side resize (reference
+    segment_anything/utils/transforms.py:141-148: ``int(dim * scale +
+    0.5)``)."""
+    scale = target_length / max(h, w)
+    return (int(h * scale + 0.5), int(w * scale + 0.5))

@@ -339,10 +339,14 @@ def test_run_eval_modes_agree(data_dir, port_pipe):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(base_model="SAM"), "item 25"), (dict(dataset="polyps"), "item 24")],
+    (dict(base_model="SAM", dataset="polyps"), "item 24"),
+    (dict(dataset="polyps"), "item 24")],
     ids=["sam-oracle", "polyps"])
 def test_run_eval_refuses_what_is_not_ported(data_dir, port_pipe, overrides,
                                              match):
+    """The polyp data layer is not ported: ``run_eval`` refuses polyps,
+    through the pipeline and through the SAM oracle (which runs on the
+    NIfTI datasets: ``tests/test_torch_sam_tools.py``)."""
     cfg = _cfg(Config, data_dir)
     for k, v in overrides.items():
         setattr(cfg, k, v)

@@ -283,7 +283,10 @@ def test_import_pulls_in_no_jax():
         "'validation_protosam', 'train.step', 'train.trainer', "
         "'train.lora', 'eval.alpnet_eval', 'eval.ttt', 'data.transforms', "
         "'data.superpixel', 'models.backbones.resnet', 'models.master', "
-        "'training', 'validation'):\n"
+        "'training', 'validation', 'models.sam.rle', 'models.sam.amg', "
+        "'models.sam.predictor', 'models.samwrapper', 'serve', "
+        "'utils.export', 'data.prefetch', 'utils.agreement', "
+        "'utils.debugging', 'utils.legacy', 'tools.replay_goldens'):\n"
         "    assert 'protosam_tpu_torch.' + m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
