@@ -97,12 +97,23 @@ Phases, one line each; any failure exits non-zero and prints no result:
    support, one slice and 8 slices, each request twice (ms printed), K1-K4
    launched from request threads only, the volume's masks bit-equal to
    ``forward_volume``'s; 9f ``tools/replay_goldens`` (the 36 recorded
-   reference masks in f32 and bf16; f32 Dice >= 0.99 everywhere).
+   reference masks in f32 and bf16; f32 Dice >= 0.99 everywhere);
+10. data preparation and the host libraries: 10a ``prepare_dataset`` of 2
+   raw scans of phase 7's fold at 672 on the card (native Felzenszwalb, one
+   K3 call a scan for the foreground masks), its ``superpix_volume``
+   bit-equal to its own CPU run; 10b the 20-scan fold at 256 (classmaps
+   checked); 10c ``train()`` 3 steps at phase 8a's settings on 10b's
+   superpixels (K1, K2 forward and backward); 10d ``run_eval`` (7a's
+   configuration) on the native NIfTI feeder (its calls counted), its
+   ingest within 2e-3 of the numpy ingest, every mask dumped; 10e the
+   same with ``use_clahe=True`` (K1-K4); 10f ``tools/run_agreement``
+   against 10d's masks, which must read 1.0 and exit 0.
 
 Then one JSON line with the kernels' numbers (each with its bound from
 ``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
 same function, that call's time as ``library_ms``) and, last, the result
-line.  Imports only torch, numpy and protosam_tpu_torch.
+line.  Imports only torch, numpy, scipy (through the data layer) and
+protosam_tpu_torch.
 """
 
 from __future__ import annotations
@@ -861,7 +872,7 @@ def _numbers(row: dict) -> dict:
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, int8_launches: dict,
                   tools: dict, eval_launches: dict, train: dict,
-                  alpnet: dict, sam_tools: dict) -> dict:
+                  alpnet: dict, sam_tools: dict, data: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
@@ -884,7 +895,11 @@ def kernel_report(checks: list[dict], launches: dict,
     (phase 8b) beside the library's.  ``sam_tools_launches`` counts the
     oracle, the generator and the predictor (9a-9c, summed; by sub-phase
     in ``sam_tools_launches_by_phase``), ``serve_launches`` the server's
-    requests (9d)."""
+    requests (9d).  ``data_launches`` counts phase 10 (summed; by
+    sub-phase in ``data_launches_by_phase``: 10a-10b ``prepare_dataset``,
+    10c the training on its superpixels, 10d-10f ``run_eval`` on the
+    native feeder, with CLAHE and through ``run_agreement``), and
+    ``data_backward_calls`` 10c's backward calls."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -907,6 +922,12 @@ def kernel_report(checks: list[dict], launches: dict,
                      k: c.get(name, 0)
                      for k, c in sam_tools["sam_tools"].items()},
                  "serve_launches": sam_tools["serve"].get(name, 0),
+                 "data_launches": sum(c.get(name, 0) for c in
+                                      data["launches"].values()),
+                 "data_launches_by_phase": {
+                     k: c.get(name, 0) for k, c in data["launches"].items()},
+                 "data_backward_calls":
+                     data["backward_calls_10c"].get(name, 0),
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -1079,13 +1100,11 @@ def write_fold(base_dir: str, seed: int = 0, depth: int = FOLD_Z) -> str:
     return base_dir
 
 
-def eval_config(fold: str, sam_ver: str, log_dir: str = "", **extra):
+def eval_argv(fold: str, sam_ver: str, **extra) -> list[str]:
     """``run_protosam.sh mri``'s settings (DINOv2-L/14 at 672, CHAOST2 fold
     0, right kidney, support scan 4, cca, organ slices only, seed 42) with
     ``protosam_sam_ver`` given; bf16, ``slice_batch`` 4; ``extra`` as
-    further ``key=value`` overrides."""
-    from protosam_tpu_torch.utils.config import load_config
-
+    further ``key=value`` overrides: the CLI's ``with ...`` arguments."""
     argv = ["with", "modelname=dinov2_l14", "base_model=alpnet",
             "coarse_pred_only=False", f"protosam_sam_ver={sam_ver}",
             "curr_cls=rk", "eval_fold=0", "dataset=CHAOST2_Superpix_672",
@@ -1093,8 +1112,15 @@ def eval_config(fold: str, sam_ver: str, log_dir: str = "", **extra):
             "skip_no_organ_slices=True", "lora=0", "support_idx=[4]",
             "input_size=(672, 672)", f"path.CHAOST2_672.data_dir={fold}",
             "dtype=bfloat16", "slice_batch=4"]
-    argv += [f"{k}={v}" for k, v in extra.items()]
-    cfg = load_config(argv)
+    return argv + [f"{k}={v}" for k, v in extra.items()]
+
+
+def eval_config(fold: str, sam_ver: str, log_dir: str = "", **extra):
+    """The configuration of ``eval_argv(fold, sam_ver, **extra)`` with
+    ``log_dir``."""
+    from protosam_tpu_torch.utils.config import load_config
+
+    cfg = load_config(eval_argv(fold, sam_ver, **extra))
     cfg.log_dir = log_dir
     return cfg
 
@@ -1165,12 +1191,13 @@ def _metrics(result: dict) -> dict:
             if k not in ("slices_per_sec", "stage_timings", "launches")}
 
 
-def phase_eval(counters: dict, smi: str, tmp: str) -> tuple[dict, str]:
+def phase_eval(counters: dict, smi: str, tmp: str
+               ) -> tuple[dict, str, float]:
     """The eval entry point on a NIfTI fold written under ``tmp``:
     ``run_eval`` for ProtoSAM (7a) and ProtoMedSAM (7b) built in memory and
     from ``.pth`` files of the same seeded weights, then rotation TTA (7c).
-    Returns the launch counts of 7a's ``.pth`` run in ``volume`` mode and
-    the fold's directory."""
+    Returns the launch counts of 7a's ``.pth`` run in ``volume`` mode, the
+    fold's directory and that run's slices/s."""
     import os
 
     from protosam_tpu_torch.eval.protosam_eval import build_models
@@ -1215,7 +1242,7 @@ def phase_eval(counters: dict, smi: str, tmp: str) -> tuple[dict, str]:
             f"beside forward_volume {vol_ms:.2f} ms/slice on the same "
             f"{pth['n_slices']} slices")
         if sam_ver == "sam_b":
-            eval_launches = pth["launches"]
+            eval_launches, eval_sps = pth["launches"], pth["slices_per_sec"]
             slc, slc_masks = counted_eval(f"phase {tag} per_slice",
                                           pth_cfg, pipe, counters,
                                           mode="per_slice")
@@ -1234,7 +1261,7 @@ def phase_eval(counters: dict, smi: str, tmp: str) -> tuple[dict, str]:
         del pipe
     phase_rotation()
     log(f"phase 7 eval: {time.perf_counter() - t0:.1f} s in all")
-    return eval_launches, fold
+    return eval_launches, fold, eval_sps
 
 
 def phase_rotation() -> None:
@@ -1996,6 +2023,234 @@ def phase_sam_tools(counters: dict, smi: str, tmp: str) -> dict:
             "serve_ms": served["ms"], "goldens": goldens}
 
 
+# ---- phase 10: data preparation, the native feeder, CLAHE, agreement ------
+
+PREP_SCANS = 2       # 10a: raw scans prepared at JAX's default of 672
+MR_FG_THRESH = 50 + 1e-4   # prepare_dataset's MR foreground threshold
+INGEST_TOL = 2e-3    # native against numpy ingest: JAX's bound
+
+
+def counted_prepare(tag: str, raw: str, out: str, counters: dict,
+                    size: int) -> tuple[dict, float]:
+    """``prepare_dataset(raw, out, "MR", size)`` on the card with the counts
+    zeroed just before and read just after: one K3 call a scan.  Returns
+    the counts and the wall seconds."""
+    import glob
+
+    from protosam_tpu_torch.data.prepare import prepare_dataset
+
+    n = len(glob.glob(f"{raw}/image_*.nii.gz"))
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    prepare_dataset(raw, out, "MR", FOLD_NAMES, image_size=size)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    log(f"{tag}: {n} scans in {wall:.1f} s ({wall / n:.2f} s a scan); "
+        f"kernel launches {launches}")
+    if launches["cca_label"] != n:
+        raise AssertionError(f"{tag}: {launches['cca_label']} K3 launches "
+                             f"for {n} scans, one a scan expected")
+    return launches, wall
+
+
+def phase_prepare(counters: dict, smi: str, tmp: str, fold: str) -> dict:
+    """10a: ``prepare_dataset`` of 2 raw scans of phase 7's fold at 672 on
+    the card (K3 once a scan), its ``superpix_volume`` bit-equal to its CPU
+    run on the same volume; 10b: the whole 20-scan fold at 256, which 10c
+    trains on."""
+    import os
+    import shutil
+
+    from protosam_tpu_torch.data.nifti import read_nii
+    from protosam_tpu_torch.data.prepare import felzenszwalb, superpix_volume
+
+    raw = os.path.join(tmp, "raw_two")
+    os.makedirs(raw)
+    for i in range(1, PREP_SCANS + 1):
+        for kind in ("image", "label"):
+            shutil.copy(f"{fold}/{kind}_{i}.nii.gz", raw)
+    out672 = os.path.join(tmp, "prepared_672")
+    launches_a, wall = counted_prepare(
+        f"phase 10a prepare_dataset MR 672 [{smi}]", raw, out672, counters,
+        672)
+    img = read_nii(f"{out672}/image_1.nii.gz")
+    sp = read_nii(f"{out672}/superpix-MIDDLE_1.nii.gz")
+    t0 = time.perf_counter()
+    for z in range(3):
+        felzenszwalb(img[z])
+    felz_ms = (time.perf_counter() - t0) / 3 * 1e3
+    per_slice = [int(len(np.unique(s))) - 1 for s in sp]
+    card = superpix_volume(img, MR_FG_THRESH)
+    t0 = time.perf_counter()
+    cpu = superpix_volume(img, MR_FG_THRESH, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = np.array_equal(card, cpu) and np.array_equal(card, sp)
+    log(f"phase 10a: {img.shape[0]} slices of {img.shape[1]}² a scan; "
+        f"Felzenszwalb {felz_ms:.1f} ms a 672² slice (one thread); "
+        f"superpixels a slice min {min(per_slice)} mean "
+        f"{np.mean(per_slice):.1f} max {max(per_slice)}; superpix_volume "
+        f"card vs CPU (plain K3, {cpu_s:.1f} s) bit-equal {same}")
+    if not same or min(per_slice) < 2:
+        raise AssertionError("10a: the card's superpixels differ from the "
+                             "CPU's, or a slice has fewer than 2")
+
+    out256 = os.path.join(tmp, "prepared_256")
+    launches_b, wall_b = counted_prepare(
+        f"phase 10b prepare_dataset MR 256 [{smi}]", fold, out256, counters,
+        256)
+    with open(f"{out256}/classmap_1.json") as f:
+        cmap = json.load(f)
+    zs = {name: sum(len(v) for v in by_scan.values())
+          for name, by_scan in cmap.items()}
+    log(f"phase 10b: classmap_1 {len(cmap)} classes, z slices a class "
+        f"{zs}; {wall_b:.1f} s in all")
+    if set(cmap) != set(FOLD_NAMES) or min(zs.values()) == 0:
+        raise AssertionError(f"10b: classmaps {zs}")
+    return {"launches": {"10a": launches_a, "10b": launches_b},
+            "s_per_scan_672": wall / PREP_SCANS, "felzenszwalb_ms": felz_ms,
+            "superpixels_per_slice": float(np.mean(per_slice)),
+            "s_20_scans_256": wall_b, "prepared": out256}
+
+
+def ingest(fold: str, native_on: bool) -> tuple[list, float]:
+    """The eval fold's volumes through ``MedicalVolumeDataset`` (fold 0 at
+    672) on the native feeder or on the numpy path: the images of its
+    records and the ms a scan."""
+    from unittest import mock
+
+    import protosam_tpu_torch.native as native
+    from protosam_tpu_torch.data.medical import MedicalVolumeDataset
+
+    with mock.patch.object(native, "native_available",
+                           native.native_available if native_on
+                           else lambda: False):
+        t0 = time.perf_counter()
+        ds = MedicalVolumeDataset("CHAOST2", fold, 0, 672)
+        ms = (time.perf_counter() - t0) / len(ds.pid_curr_load) * 1e3
+    return [r.img for r in ds.actual_dataset], ms
+
+
+def phase_native_eval(counters: dict, smi: str, tmp: str, fold: str,
+                      eval_sps: float) -> dict:
+    """10d: ``run_eval`` (7a's configuration) on phase 7's fold through the
+    native feeder, every mask dumped (``tools.run_agreement.
+    run_and_dump``), the native ingest held to the numpy ingest; 10e: the
+    same with ``use_clahe=True``; 10f: ``tools.run_agreement`` against
+    10d's masks."""
+    import io
+    import os
+
+    from protosam_tpu_torch.data.clahe import clahe
+    from protosam_tpu_torch.data.nifti import read_nii
+    from protosam_tpu_torch.eval.protosam_eval import build_models, run_eval
+    from protosam_tpu_torch.native import feeder
+    from protosam_tpu_torch.tools import run_agreement
+
+    numpy_imgs, numpy_ms = ingest(fold, False)
+    native_imgs, native_ms = ingest(fold, True)
+    gap = max(float(np.abs(a - b).max())
+              for a, b in zip(native_imgs, numpy_imgs))
+    del numpy_imgs, native_imgs
+    log(f"phase 10d ingest [{smi}]: native {native_ms:.1f} ms a scan, "
+        f"numpy {numpy_ms:.1f} ms a scan ({FOLD_Z} x {FOLD_HW}² -> 672², "
+        f"labels included); max abs gap {gap:.2e} (bound {INGEST_TOL:.0e})")
+    if not gap <= INGEST_TOL:
+        raise AssertionError("10d: native and numpy ingest disagree")
+
+    cfg = eval_config(fold, "sam_b", log_dir=os.path.join(tmp, "log_10d"))
+    pipe = build_models(cfg)
+    dumped = os.path.join(tmp, "masks_10d")
+    feeder.calls = 0
+    res_d, launches_d, _ = counted_call(
+        "phase 10d run_eval, native feeder",
+        lambda: run_agreement.run_and_dump(cfg, dumped, pipe), counters,
+        FLAGSHIP_KERNELS)
+    log(f"phase 10d [{smi}]: run_eval {res_d['slices_per_sec']:.2f} "
+        f"slices/s on the native feeder ({feeder.calls} feeder calls) "
+        f"beside phase 7a's {eval_sps:.2f}; meanDice "
+        f"{res_d['mar_val_batches_meanDice']:.5f}, {res_d['n_slices']} "
+        f"masks dumped")
+    if feeder.calls == 0:
+        raise AssertionError("10d: run_eval did not take the native feeder")
+
+    vol = read_nii(f"{fold}/image_1.nii.gz").astype(np.uint8)
+    t0 = time.perf_counter()
+    clahe(vol, 2.0)
+    clahe_ms = (time.perf_counter() - t0) / len(vol) * 1e3
+    calls = feeder.calls
+    cfg_e = eval_config(fold, "sam_b", use_clahe=True)
+    res_e, launches_e, _ = counted_call(
+        "phase 10e run_eval, use_clahe=True",
+        lambda: run_eval(cfg_e, pipe=pipe), counters, FLAGSHIP_KERNELS)
+    log(f"phase 10e [{smi}]: run_eval {res_e['slices_per_sec']:.2f} "
+        f"slices/s with CLAHE ({clahe_ms:.2f} ms a 256² slice on the host, "
+        f"{feeder.calls - calls} feeder calls); meanDice "
+        f"{res_e['mar_val_batches_meanDice']:.5f}")
+    if feeder.calls != calls or res_e["n_slices"] != res_d["n_slices"]:
+        raise AssertionError("10e: CLAHE took the native feeder, or another "
+                             "slice count")
+    del pipe
+
+    argv = ["--ref-masks", dumped, *eval_argv(fold, "sam_b"),
+            f"path.log_dir={os.path.join(tmp, 'log_10f')}"]
+    buf = io.StringIO()
+    rc, launches_f, _ = counted_call(
+        "phase 10f run_agreement",
+        lambda: _stdout_to(buf, run_agreement.main, argv), counters,
+        FLAGSHIP_KERNELS)
+    report = json.loads(buf.getvalue())
+    log(f"phase 10f: run_agreement against 10d's masks: overall "
+        f"{report['overall']} over {report['n_pairs']} masks, exit {rc}")
+    if rc != 0 or report["overall"] != 1.0 \
+            or report["n_pairs"] != res_d["n_slices"]:
+        raise AssertionError(f"10f: agreement {report['overall']}, exit {rc}")
+    return {"launches": {"10d": launches_d, "10e": launches_e,
+                         "10f": launches_f},
+            "native_ms_per_scan": native_ms, "numpy_ms_per_scan": numpy_ms,
+            "ingest_gap": gap, "slices_per_sec": res_d["slices_per_sec"],
+            "clahe_slices_per_sec": res_e["slices_per_sec"],
+            "clahe_ms": clahe_ms, "agreement": report["overall"]}
+
+
+def _stdout_to(buf, fn, *args):
+    import contextlib
+
+    with contextlib.redirect_stdout(buf):
+        return fn(*args)
+
+
+def phase_data(counters: dict, smi: str, tmp: str, fold: str,
+               eval_sps: float) -> dict:
+    """Phase 10: prepare (10a-10b), train on what was prepared (10c),
+    evaluate through the native feeder (10d), with CLAHE (10e), agreement
+    (10f)."""
+    import os
+
+    t0 = time.perf_counter()
+    prep = phase_prepare(counters, smi, tmp, fold)
+    cfg = train_config(prep["prepared"], os.path.join(tmp, "train_10c"),
+                       modelname="dinov2_l14",
+                       **{"input_size": "(672, 672)"})
+    train = counted_train("phase 10c train dinov2_l14 672 on prepared "
+                          "superpixels", cfg, counters, 3, TRAIN_KERNELS)
+    step_ms = float(np.median(train["step_ms"][1:]))
+    log(f"phase 10c [{smi}]: {step_ms:.1f} ms/step (median of steps 2-3), "
+        f"kernel launches {train['launches']}, backward calls "
+        f"{train['backward_calls']}")
+    evals = phase_native_eval(counters, smi, tmp, fold, eval_sps)
+    wall = time.perf_counter() - t0
+    log(f"phase 10: {wall:.1f} s")
+    launches = {**prep["launches"], "10c": train["launches"],
+                **evals["launches"]}
+    return {"launches": launches,
+            "backward_calls_10c": train["backward_calls"],
+            "train_step_ms": step_ms, "wall_s": wall,
+            **{k: v for k, v in prep.items()
+               if k not in ("launches", "prepared")},
+            **{k: v for k, v in evals.items() if k != "launches"}}
+
+
 def make_counters() -> dict:
     """kernel -> (its wrapper, the wrapper's count of its launches)"""
     from protosam_tpu_torch.ops.alp import alp_match_fused
@@ -2036,12 +2291,14 @@ def main() -> int:
     launches = phase_vith(counters)
     tools = phase_tools(counters)
     with tempfile.TemporaryDirectory() as tmp:
-        eval_launches, fold = phase_eval(counters, smi, tmp)
+        eval_launches, fold, eval_sps = phase_eval(counters, smi, tmp)
         train = phase_train(counters, smi, tmp, fold)
         alpnet = phase_alpnet_eval(counters, smi, fold)
         sam_tools = phase_sam_tools(counters, smi, tmp)
+        data = phase_data(counters, smi, tmp, fold, eval_sps)
     log(json.dumps(kernel_report(checks, launches, flagship, int8, tools,
-                                 eval_launches, train, alpnet, sam_tools)))
+                                 eval_launches, train, alpnet, sam_tools,
+                                 data)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,11 +7,16 @@ loaded eagerly, normalized per modality, resized, flattened into per-slice
 records with scan/z bookkeeping; support slices are picked at fixed
 percentile positions of the class's z-extent.
 
-Arrays are numpy.  The volumes take JAX's numpy ingest path, with its
-``cv2.resize`` done by ``F.interpolate`` on the CPU: bilinear
-(``align_corners=False``) for images as ``INTER_LINEAR``, nearest for
-labels as ``INTER_NEAREST``.  CLAHE and the native C++ feeder are not
-ported (ROADMAP §1 items 21 and 22).
+Arrays are numpy.  The volumes take one of JAX's two ingest paths,
+chosen once a dataset as JAX chooses: MR without CLAHE goes through the
+native C++ feeder (``native/feeder.py``: read, bilinear resize and z-score
+in one pass, bit-equal to JAX's), where g++ is installed; otherwise JAX's
+numpy path, with its ``cv2.resize`` done by ``F.interpolate`` on the CPU:
+bilinear (``align_corners=False``) for images as ``INTER_LINEAR``, nearest
+for labels as ``INTER_NEAREST``.  Labels take the nearest resize on both
+paths.  ``use_clahe`` applies CLAHE (clip 2.0, 7 x 7 tiles;
+``data/clahe.py``, cv2's bits) to each raw slice cast to uint8 by numpy, as
+JAX does.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from protosam_tpu_torch import native
+from protosam_tpu_torch.data.clahe import clahe
 from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       CircularList,
                                                       get_normalize_op)
@@ -79,10 +86,7 @@ class MedicalVolumeDataset:
         self.nsup = nsup
         self.min_fg = str(min_fg)
         self.exclude_lbs = exclude_list or []
-        if use_clahe:
-            raise NotImplementedError(
-                "use_clahe needs CLAHE without cv2, not ported yet "
-                "(ROADMAP §1 item 21)")
+        self.use_clahe = use_clahe
 
         pids = [re.findall(r"\d+", f)[-1]
                 for f in glob.glob(f"{base_dir}/image_*.nii.gz")]
@@ -114,20 +118,35 @@ class MedicalVolumeDataset:
     # -- loading -----------------------------------------------------------
 
     def _read_dataset(self):
+        use_native = (self.img_modality == "MR" and not self.use_clahe
+                      and native.native_available())
         glb_idx = 0
         for scan_id in self.pid_curr_load:
             img_meta = read_nii(f"{self.base_dir}/image_{scan_id}.nii.gz",
                                 peel_info=False)
             self.info_by_scan[scan_id] = img_meta
-            img = img_meta.array.transpose(1, 2, 0)  # (H, W, Z)
-            img = self.norm_func(np.float32(img))
+            if use_native:
+                # C++ single-pass read+resize+normalize (hot ingest path)
+                vol, _ = native.read_volume_native(
+                    f"{self.base_dir}/image_{scan_id}.nii.gz")
+                img = native.preprocess_volume_native(
+                    vol, self.image_size, "MR").transpose(1, 2, 0)
+                lbv, _ = native.read_volume_native(
+                    f"{self.base_dir}/label_{scan_id}.nii.gz")
+                lb = _resize_slices(lbv.transpose(1, 2, 0), self.image_size,
+                                    "nearest")
+            else:
+                img = img_meta.array
+                if self.use_clahe:
+                    img = clahe(img.astype(np.uint8), 2.0)
+                img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
 
-            lb = read_nii(f"{self.base_dir}/label_{scan_id}.nii.gz")
-            lb = np.float32(lb.transpose(1, 2, 0))
+                lb = read_nii(f"{self.base_dir}/label_{scan_id}.nii.gz")
+                lb = np.float32(lb.transpose(1, 2, 0))
 
-            img = _resize_slices(np.float32(img), self.image_size,
-                                 "bilinear")
-            lb = _resize_slices(lb, self.image_size, "nearest")
+                img = _resize_slices(np.float32(img), self.image_size,
+                                     "bilinear")
+                lb = _resize_slices(lb, self.image_size, "nearest")
             nframe = img.shape[-1]
             self.scan_z_idx[scan_id] = [-1] * nframe
             for ii in range(nframe):

@@ -7,7 +7,9 @@ sending the same slice twice through independent draws of the geometric
 + intensity augmentation (``num_rep=2``).  The supervised variant uses the
 real labels restricted to ``train_list``.  Volumes resize through the
 data layer's cv2-free resize (``data/medical._resize_slices``: bilinear
-images, nearest labels); CLAHE is not ported (ROADMAP §1 item 21).
+images, nearest labels).  ``use_clahe`` applies CLAHE (clip 4.0 for MR,
+2.0 for CT, 7 x 7 tiles; ``data/clahe.py``, cv2's bits) to each raw slice
+cast to uint8 by numpy, an MR slice first stretched to 0-255, as JAX does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import re
 
 import numpy as np
 
+from protosam_tpu_torch.data.clahe import clahe
 from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       CircularList,
                                                       get_normalize_op)
@@ -36,10 +39,6 @@ class SuperpixelDataset:
                  norm_std=None, supervised_train: bool = False,
                  use_3_slices: bool = False, use_clahe: bool = False,
                  seed: int | None = None, **kwargs):
-        if use_clahe:
-            raise NotImplementedError(
-                "use_clahe needs CLAHE without cv2, not ported yet "
-                "(ROADMAP §1 item 21)")
         info = DATASET_INFO[which_dataset]
         self.img_modality = info["MODALITY"]
         self.sep = info["_SEP"]
@@ -62,6 +61,8 @@ class SuperpixelDataset:
         self.exclude_lbs = exclude_list or []
         self.superpix_scale = superpix_scale
         self.rng = np.random.RandomState(seed)
+        self.use_clahe = use_clahe
+        self.clahe_clip = 4.0 if self.img_modality == "MR" else 2.0
 
         pids = [re.findall(r"\d+", f)[-1]
                 for f in glob.glob(f"{base_dir}/image_*.nii.gz")]
@@ -94,6 +95,11 @@ class SuperpixelDataset:
         glb = 0
         for scan_id in self.pid_curr_load:
             img = read_nii(f"{self.base_dir}/image_{scan_id}.nii.gz")
+            if self.use_clahe:
+                if self.img_modality == "MR":
+                    img = np.stack([(s - s.min()) / (s.max() - s.min()) * 255
+                                    for s in img], axis=0)
+                img = clahe(img.astype(np.uint8), self.clahe_clip)
             img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
             lb = np.int32(read_nii(self._label_path(scan_id)).transpose(1, 2, 0))
             img = _resize_slices(np.float32(img), self.image_size, "bilinear")

@@ -29,6 +29,7 @@ except ImportError:
 from torch_parity import (dice, jax_coarse_params, jax_sam_params,
                                 record_calls, seeded_state_dict)
 
+import protosam_tpu_torch.native
 from protosam_tpu_torch.data import medical, nifti
 from protosam_tpu_torch.eval import protosam_eval
 from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
@@ -76,9 +77,16 @@ def test_nifti_files_cross_read(tmp_path, writer, dtype):
 # -------------------------------------------------------- the data layer
 
 
+def _native(monkeypatch, on: bool):
+    """Both packages' switch of the native feeder: off takes each one's
+    numpy path, on each one's C++ feeder (the port's own since it has
+    one)."""
+    for mod in (protosam_tpu.native, protosam_tpu_torch.native):
+        monkeypatch.setattr(mod, "native_available", lambda: on)
+
+
 def _datasets(data_dir, size, native, monkeypatch):
-    monkeypatch.setattr(protosam_tpu.native, "native_available",
-                        lambda: native)
+    _native(monkeypatch, native)
     kw = dict(dataset_name="CHAOST2", base_dir=data_dir, idx_split=0,
               act_labels=[1, 2, 3, 4], npart=3, image_size=size)
     return jmedical.med_fewshot_val(**kw), medical.med_fewshot_val(**kw)
@@ -88,17 +96,19 @@ def _datasets(data_dir, size, native, monkeypatch):
 @pytest.mark.parametrize("native", [False, True], ids=["cv2", "native"])
 def test_medical_dataset_matches_jax(data_dir, monkeypatch, size, native):
     """Slice order, scan ids, part_assign and the support set as JAX's;
-    labels bit-equal; images within 1e-4 relative of JAX's cv2 path, 2e-3
-    of its native feeder."""
+    labels bit-equal; images within 1e-4 relative of JAX's cv2 path (both
+    feeders off), and bit-equal to JAX's native feeder (both on)."""
+    calls = protosam_tpu_torch.native.feeder.calls
     (jval, jparent), (val, parent) = _datasets(data_dir, size, native,
                                                monkeypatch)
+    # the port took the path asked for
+    assert (protosam_tpu_torch.native.feeder.calls > calls) == native
     assert list(parent.pid_curr_load) == list(jparent.pid_curr_load)
     assert parent.scan_z_idx == jparent.scan_z_idx
     assert parent.idx_by_class == jparent.idx_by_class
     assert [(r.scan_id, r.z_id, r.nframe) for r in parent.actual_dataset] \
         == [(r.scan_id, r.z_id, r.nframe) for r in jparent.actual_dataset]
-    tol = dict(rtol=2e-3, atol=2e-3) if native else dict(rtol=1e-4,
-                                                         atol=1e-4)
+    tol = dict(rtol=0, atol=0) if native else dict(rtol=1e-4, atol=1e-4)
     for cls in (2, 4):
         val.set_curr_cls(cls)
         jval.set_curr_cls(cls)
@@ -124,8 +134,7 @@ def test_medical_dataset_matches_jax(data_dir, monkeypatch, size, native):
 def test_dataset_scan_helpers_match_jax(data_dir, monkeypatch, use_3_slices):
     """The whole-scan support, the per-class supports and the full-scan
     item as JAX's (cv2 path), with 3-slice inputs too."""
-    monkeypatch.setattr(protosam_tpu.native, "native_available",
-                        lambda: False)
+    _native(monkeypatch, False)
     kw = dict(which_dataset="CHAOST2", base_dir=data_dir, idx_split=1,
               image_size=80, use_3_slices=use_3_slices)
     ours, theirs = medical.MedicalVolumeDataset(**kw), \
@@ -157,9 +166,17 @@ def test_dataset_scan_helpers_match_jax(data_dir, monkeypatch, use_3_slices):
 
 
 def test_medical_dataset_refuses_clahe(data_dir):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        medical.MedicalVolumeDataset("CHAOST2", data_dir, 0, 64,
-                                     use_clahe=True)
+    """CLAHE is no longer refused (its parity with JAX is
+    ``tests/test_torch_clahe.py``): as in JAX it turns the native feeder
+    off, and it changes the images."""
+    calls = protosam_tpu_torch.native.feeder.calls
+    eq = medical.MedicalVolumeDataset("CHAOST2", data_dir, 0, 64,
+                                      use_clahe=True)
+    assert protosam_tpu_torch.native.feeder.calls == calls
+    plain = medical.MedicalVolumeDataset("CHAOST2", data_dir, 0, 64)
+    assert protosam_tpu_torch.native.feeder.calls > calls
+    assert not np.allclose(eq[3]["image"], plain[3]["image"], atol=1e-2)
+    np.testing.assert_array_equal(eq[3]["label"], plain[3]["label"])
 
 
 # ---------------------------------------------------- metrics, detection
@@ -286,12 +303,17 @@ def port_pipe(weights):
 
 
 def _port_run(data_dir, pipe, mode, log_dir=""):
+    """The port's run_eval, with its native feeder off as JAX's is in
+    ``jax_run``."""
     masks = []
     name = "forward_volume" if mode == "volume" else "forward"
     record_calls(pipe, name, masks)
     try:
-        result = protosam_eval.run_eval(_cfg(Config, data_dir, log_dir),
-                                        pipe=pipe, mode=mode)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(protosam_tpu_torch.native, "native_available",
+                       lambda: False)
+            result = protosam_eval.run_eval(_cfg(Config, data_dir, log_dir),
+                                            pipe=pipe, mode=mode)
     finally:
         delattr(pipe, name)
     masks = np.concatenate(masks) if mode == "volume" else np.stack(masks)

@@ -459,6 +459,44 @@ def test_pipeline_profile_instruments_the_five_stages():
 # ------------------------------------------------------------ on the card
 
 
+
+# ------------------------------------------------------- run_agreement
+
+
+def test_run_agreement_against_its_own_masks(tmp_path, monkeypatch):
+    """The tool on a tiny CPU configuration (dinov2_t14 at 64 px + SAM
+    vit_t at a 256 frame, seeded weights) on a synthetic CHAOS-T2 fold:
+    against an empty reference it dumps its masks and exits 1; against
+    those masks it reads agreement 1.0 and exits 0."""
+    import json
+
+    from protosam_tpu_torch.eval import protosam_eval
+    from protosam_tpu_torch.tools import run_agreement
+    from tests.synthetic_data import make_dataset
+
+    torch.set_num_threads(2)
+    monkeypatch.setattr(protosam_eval, "SAM_IMAGE_SIZE", 256)
+    fold = make_dataset(str(tmp_path / "chaos"))
+    argv = lambda log, ref: [
+        "--ref-masks", str(ref), "--device", "cpu", "with",
+        "modelname=dinov2_t14", "protosam_sam_ver=vit_t", "dataset=CHAOST2",
+        f"path.CHAOST2.data_dir={fold}", "input_size=(64, 64)",
+        "curr_cls=rk", "do_cca=True", "support_idx=[-1]", "dtype=float32",
+        "slice_batch=2", "max_ccs=4", f"path.log_dir={log}"]
+    (tmp_path / "none").mkdir()
+    assert run_agreement.main(argv(tmp_path / "a", tmp_path / "none")) == 1
+    dumped = sorted((tmp_path / "a" / "our_masks").glob("slice_*.npy"))
+    result = json.loads((tmp_path / "a" /
+                         "protosam_eval_result.json").read_text())
+    assert len(dumped) == result["n_slices"] > 0
+    assert np.load(dumped[0]).shape == (64, 64)
+    rc = run_agreement.main(argv(tmp_path / "b", tmp_path / "a" / "our_masks"))
+    assert rc == 0
+    report = run_agreement.dice_agreement_report(
+        str(tmp_path / "b" / "our_masks"), str(tmp_path / "a" / "our_masks"),
+        pattern="*.npy")
+    assert report["overall"] == 1.0 and report["n_pairs"] == len(dumped)
+
 @pytest.mark.cuda
 def test_k6_at_the_fc2_geometry(cuda):
     x, w, b, r = bench_fc2.to_kernel_layout(*bench_fc2.fc2_inputs(), cuda)

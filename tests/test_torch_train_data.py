@@ -145,10 +145,17 @@ def test_superpixel_episodes_match_jax(data_dir, kw):
 
 
 def test_superpixel_refuses_clahe(data_dir):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        superpixel.SuperpixelDataset(
-            which_dataset="CHAOST2", base_dir=data_dir, idx_split=0,
-            mode="train", image_size=HW, transforms=None, use_clahe=True)
+    """CLAHE is no longer refused (its parity with JAX is
+    ``tests/test_torch_clahe.py``): the MR fold clips at 4.0, as in JAX,
+    and CLAHE changes the images, not the superpixel labels."""
+    kw = dict(which_dataset="CHAOST2", base_dir=data_dir, idx_split=0,
+              mode="train", image_size=HW, transforms=None)
+    eq = superpixel.SuperpixelDataset(use_clahe=True, **kw)
+    plain = superpixel.SuperpixelDataset(**kw)
+    assert eq.clahe_clip == 4.0
+    a, b = eq.actual_dataset[5], plain.actual_dataset[5]
+    assert not np.allclose(a["img"], b["img"], atol=1e-2)
+    np.testing.assert_array_equal(a["lb"], b["lb"])
 
 
 # ------------------------------------------------------- train() vs JAX
