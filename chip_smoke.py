@@ -107,7 +107,25 @@ Phases, one line each; any failure exits non-zero and prints no result:
    configuration) on the native NIfTI feeder (its calls counted), its
    ingest within 2e-3 of the numpy ingest, every mask dumped; 10e the
    same with ``use_clahe=True`` (K1-K4); 10f ``tools/run_agreement``
-   against 10d's masks, which must read 1.0 and exit 0.
+   against 10d's masks, which must read 1.0 and exit 0;
+11. the polyp eval, multi-GPU and the launcher, at the flagship's width:
+   11a ``run_eval(dataset="polyps")`` (``run_protosam.sh polyp``'s
+   settings with SAM ViT-B, bf16) on a Kvasir-like fold written with the
+   port's ``write_png`` (4 train and 16 test RGB images at 576 x 720,
+   their rows filtered with the five PNG filters in turn),
+   K1-K4 launched, slices/s and the mean Dice printed, then the tiny f32
+   pipeline's ``run_eval_polyp`` on the card against the CPU (metrics
+   within 1e-6); 11b one ``SuperpixPolypDataset`` episode with
+   ``get_polyp_transform`` on the host (ms printed); 11c dp, tp and pp on
+   two ranks that share the card (gloo, passed by the phase; its
+   send/recv of CUDA tensors staged through the host): dp masks
+   bit-equal to ``forward_volume``'s (scores 1e-5), tp masks at mean Dice
+   >= 0.99 (the minimum printed), pp masks equal, K1-K4 launched in every
+   dp and tp rank and across pp's two stages, then
+   ``tools.measure_dp_scaling``'s overhead; 11d
+   ``protosam_tpu_torch/run_protosam.sh polyp`` with its defaults (SAM
+   ViT-H) from a directory whose ``data/polyps`` is 11a's fold: exit 0 and
+   its result printed.
 
 Then one JSON line with the kernels' numbers (each with its bound from
 ``tools.roofline.kernel_cost`` and, where one PyTorch call computes the
@@ -872,7 +890,8 @@ def _numbers(row: dict) -> dict:
 def kernel_report(checks: list[dict], launches: dict,
                   flagship_launches: dict, int8_launches: dict,
                   tools: dict, eval_launches: dict, train: dict,
-                  alpnet: dict, sam_tools: dict, data: dict) -> dict:
+                  alpnet: dict, sam_tools: dict, data: dict,
+                  polyp: dict) -> dict:
     """One entry per kernel: the production-type check (K1: the DINOv2
     bf16 rows; K4: the ViT-H window geometry, with the ViT-H global
     geometry's numbers under ``global_*``, the flagship's ViT-B window and
@@ -899,7 +918,10 @@ def kernel_report(checks: list[dict], launches: dict,
     sub-phase in ``data_launches_by_phase``: 10a-10b ``prepare_dataset``,
     10c the training on its superpixels, 10d-10f ``run_eval`` on the
     native feeder, with CLAHE and through ``run_agreement``), and
-    ``data_backward_calls`` 10c's backward calls."""
+    ``data_backward_calls`` 10c's backward calls.  ``polyp_launches``
+    counts phase 11 (summed; by sub-phase and rank in
+    ``polyp_launches_by_phase``: 11a ``run_eval(dataset="polyps")``, 11c
+    dp, tp and pp in each of the two ranks)."""
     out = []
     for name, (src, replaces) in _REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name]
@@ -928,6 +950,10 @@ def kernel_report(checks: list[dict], launches: dict,
                      k: c.get(name, 0) for k, c in data["launches"].items()},
                  "data_backward_calls":
                      data["backward_calls_10c"].get(name, 0),
+                 "polyp_launches": sum(c.get(name, 0) for c in
+                                       polyp["launches"].values()),
+                 "polyp_launches_by_phase": {
+                     k: c.get(name, 0) for k, c in polyp["launches"].items()},
                  "max_abs_err": max(r["max_abs_err"] for r in rows),
                  **_numbers(main)}
         if name in _DESIGN:
@@ -2251,6 +2277,243 @@ def phase_data(counters: dict, smi: str, tmp: str, fold: str,
             **{k: v for k, v in evals.items() if k != "launches"}}
 
 
+# ---- phase 11: the polyp eval, multi-GPU, the launcher ---------------------
+
+POLYP_HW = (576, 720)           # Kvasir's usual frame: non-square
+POLYP_TRAIN, POLYP_TEST = 4, 16
+PARALLEL_TOL = 1e-5             # dp scores; tp masks at mean Dice 0.99
+PP_ABSENT = {0: ["relpos_patch_attention"],
+             1: ["packed_masked_attention", "cca_label"]}
+
+
+def write_polyp_fold(root: str, seed: int = 0) -> str:
+    """A Kvasir-like fold written with the port's ``write_png``:
+    ``Kvasir/{images,masks}`` and a ``split.txt`` of 4 train and 16 test
+    RGB images at 576 x 720, smooth blobs with a brighter disc, the disc
+    the mask.  Row r of every file takes PNG filter r % 5, so the decoder
+    meets all five, as files of an adaptive encoder mix them."""
+    import os
+
+    from protosam_tpu_torch.data.png import write_png
+
+    ds = os.path.join(root, "Kvasir")
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(ds, sub), exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    h, w = POLYP_HW
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    filters = np.arange(h) % 5
+    names = [f"kvasir_{i:02d}" for i in range(POLYP_TRAIN + POLYP_TEST)]
+    for name in names:
+        field = F.interpolate(torch.randn(1, 3, 12, 15, generator=g),
+                              size=POLYP_HW, mode="bicubic",
+                              align_corners=False)[0]
+        cy, cx, r = (int(v) for v in (torch.randint(150, h - 150, (1,),
+                                                    generator=g),
+                                      torch.randint(150, w - 150, (1,),
+                                                    generator=g),
+                                      torch.randint(60, 140, (1,),
+                                                    generator=g)))
+        disc = ((yy - cy) ** 2 + (xx - cx) ** 2) <= r * r
+        img = (field - field.min()) / (field.max() - field.min()) * 160
+        img = img + 80 * disc
+        write_png(os.path.join(ds, "images", name + ".png"),
+                  img.clamp(0, 255).permute(1, 2, 0).to(torch.uint8).numpy(),
+                  filters)
+        write_png(os.path.join(ds, "masks", name + ".png"),
+                  (disc * 255).to(torch.uint8).numpy(), filters)
+    with open(os.path.join(ds, "split.txt"), "w") as f:
+        f.write("train:\n" + "\n".join(names[:POLYP_TRAIN]) + "\nval:\n"
+                "test:\n" + "\n".join(names[POLYP_TRAIN:]) + "\n")
+    return root
+
+
+def polyp_config(fold: str, sam_ver: str = "sam_b", **extra):
+    """``run_protosam.sh polyp``'s settings (DINOv2-L/14 at 672, seed 42,
+    cca), the SAM size given, bf16, on ``fold``."""
+    from protosam_tpu_torch.utils.config import load_config
+
+    argv = ["with", "modelname=dinov2_l14", "base_model=alpnet",
+            "coarse_pred_only=False", f"protosam_sam_ver={sam_ver}",
+            "curr_cls=polyps", "dataset=polyps", "proto_grid_size=8",
+            "seed=42", "do_cca=True", "support_idx=[0]",
+            "input_size=(672, 672)", f"path.polyps.data_dir={fold}",
+            "dtype=bfloat16"]
+    return load_config(argv + [f"{k}={v}" for k, v in extra.items()])
+
+
+def phase_polyp_eval(counters: dict, smi: str, fold: str) -> dict:
+    """11a: ``run_eval(dataset="polyps")`` at the flagship's width (SAM
+    ViT-B) on the card, K1-K4 launched; then the tiny f32 pipeline's
+    ``run_eval_polyp`` on the card against the CPU (metrics within 1e-6)."""
+    from protosam_tpu_torch.entry import build_pipeline
+    from protosam_tpu_torch.eval.protosam_eval import (build_models,
+                                                       run_eval,
+                                                       run_eval_polyp)
+    from protosam_tpu_torch.pipeline.protosam import ProtoSAMConfig
+
+    cfg = polyp_config(fold)
+    pipe = build_models(cfg)
+    res, launches, wall = counted_call(
+        "phase 11a run_eval(dataset=polyps)",
+        lambda: run_eval(cfg, pipe=pipe), counters, FLAGSHIP_KERNELS)
+    del pipe
+    log(f"phase 11a [{smi}]: run_eval polyps {res['slices_per_sec']:.2f} "
+        f"slices/s ({res['n_slices']} test images of {POLYP_HW[0]} x "
+        f"{POLYP_HW[1]} at the 672 frame, {wall:.1f} s with the support), "
+        f"meanDice {res['mar_val_batches_meanDice']:.5f}, cases "
+        f"{sorted(res['cases'])}")
+    if res["n_slices"] != POLYP_TEST or not np.isfinite(
+            res["mar_val_batches_meanDice"]):
+        raise AssertionError(f"11a: {res}")
+
+    tcfg = polyp_config(fold, input_size="(256, 256)")
+    tiny = {}
+    for dev in ("cuda", "cpu"):
+        tpipe = build_pipeline(dev, sam_ver="vit_t", coarse="dinov2_t14",
+                               image_size=256, sam_size=256,
+                               dtype=torch.float32,
+                               config=ProtoSAMConfig(image_size=(256, 256),
+                                                     max_ccs=4))
+        tiny[dev] = run_eval_polyp(tcfg, tpipe)
+    keys = [k for k in tiny["cpu"] if k.startswith("mar_")]
+    gap = max([abs(tiny["cuda"][k] - tiny["cpu"][k]) for k in keys]
+              + [abs(tiny["cuda"]["cases"][c]["meanDice"]
+                     - tiny["cpu"]["cases"][c]["meanDice"])
+                 for c in tiny["cpu"]["cases"]])
+    log(f"phase 11a tiny f32 run_eval_polyp card vs CPU: max metric gap "
+        f"{gap:.2e} (bound 1e-6); meanDice "
+        f"{tiny['cuda']['mar_val_batches_meanDice']:.6f}")
+    if not gap <= 1e-6:
+        raise AssertionError("11a: the tiny polyp eval differs on the card")
+    return {"launches": launches, "slices_per_sec": res["slices_per_sec"],
+            "mean_dice": res["mar_val_batches_meanDice"], "tiny_gap": gap}
+
+
+def phase_polyp_ssl(smi: str, fold: str) -> float:
+    """11b: one ``SuperpixPolypDataset`` episode with ``get_polyp_transform``
+    from a seeded generator, on the host."""
+    from protosam_tpu_torch.data.polyp import SuperpixPolypDataset
+    from protosam_tpu_torch.data.polyp_transforms import get_polyp_transform
+
+    ds = SuperpixPolypDataset(
+        fold, train=True, image_size=672, seed=0,
+        transforms=get_polyp_transform(np.random.RandomState(0))[0])
+    t0 = time.perf_counter()
+    ep = ds[0]
+    ms = (time.perf_counter() - t0) * 1e3
+    sup, qry = ep["support_images"][0][0], ep["query_images"][0]
+    fg = ep["support_mask"][0][0]["fg_mask"]
+    log(f"phase 11b [{smi}]: SuperpixPolypDataset episode {ms:.1f} ms on "
+        f"the host (PNG read, Felzenszwalb, two draws of the transforms); "
+        f"superpixel {ep['superpix_label']}, support fg share "
+        f"{float(fg.mean()):.4f}")
+    if sup.shape != (3, 672, 672) or qry.shape != (3, 672, 672) \
+            or not np.isfinite(sup).all() or not 0 < fg.sum():
+        raise AssertionError("11b: a malformed episode")
+    return ms
+
+
+def phase_parallel(smi: str) -> dict:
+    """11c: dp, tp and pp on two ranks that share the one card, gloo (NCCL
+    refuses two ranks on one device); the code's default on cards stays
+    NCCL.  dp masks bit-equal to ``forward_volume``'s (scores 1e-5), tp
+    masks at mean Dice >= 0.99, pp masks equal; K1-K4 in every dp and tp
+    rank, and across pp's two stages.  Then the dp tool's overhead."""
+    from protosam_tpu_torch.tools import measure_dp_scaling as dps
+
+    t0 = time.perf_counter()
+    rows = dps.check_paths("flagship", 2, N_SLICES, backend="gloo")
+    log(f"phase 11c: backend {rows[0]['backend']} (all_reduce and "
+        f"all_gather take the CUDA tensors; send/recv staged through the "
+        f"host, by the backend's name)")
+    launches = {}
+    for row in rows:
+        r = row["rank"]
+        if not row["dp_bit_equal"] or not row["dp_score_gap"] <= PARALLEL_TOL:
+            raise AssertionError(f"11c rank {r}: dp differs")
+        if not row["tp_mean_dice"] >= 0.99:
+            raise AssertionError(f"11c rank {r}: tp masks at mean Dice "
+                                 f"{row['tp_mean_dice']}")
+        if not row["pp_equal"]:
+            raise AssertionError(f"11c rank {r}: pp masks differ")
+        for mode in ("dp", "tp", "pp"):
+            launches[f"11c {mode} rank {r}"] = row["launches"][mode]
+            missing = [k for k in FLAGSHIP_KERNELS
+                       if row["launches"][mode][k] == 0]
+            # pp: stage A (rank 0) runs no SAM (K4), stage B no DINOv2 (K2)
+            # and no prompt extraction (K3)
+            absent = PP_ABSENT[r] if mode == "pp" else []
+            if sorted(missing) != sorted(absent):
+                raise AssertionError(f"11c rank {r} {mode}: kernels never "
+                                     f"launched: {missing}")
+    scaling = dps.run("flagship", 2, N_SLICES, reps=1, backend="gloo")
+    if scaling["collectives_before_gather"] or not scaling[
+            "dp_bit_equal_to_forward_volume"]:
+        raise AssertionError(f"11c: the dp tool found {scaling}")
+    wall = time.perf_counter() - t0
+    log(f"phase 11c [{smi}]: dp overhead {scaling['dp_program_overhead']:+.4f}"
+        f" (2 ranks on one card, gloo; single rank "
+        f"{scaling['t_single_rank_ms']:.1f} ms, dp "
+        f"{scaling['t_dp_same_work_ms']:.1f} ms for {N_SLICES} slices); "
+        f"{wall:.1f} s")
+    return {"launches": launches, "dp_overhead": scaling["dp_program_overhead"],
+            "t_single_rank_ms": scaling["t_single_rank_ms"],
+            "t_dp_ms": scaling["t_dp_same_work_ms"]}
+
+
+def phase_launcher(smi: str, tmp: str, fold: str) -> float:
+    """11d: ``protosam_tpu_torch/run_protosam.sh polyp`` with its defaults
+    (SAM ViT-H), run from a directory whose ``data/polyps`` is 11a's fold;
+    it must exit 0 and print its result."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "launch_11d")
+    os.makedirs(os.path.join(work, "data"))
+    os.symlink(fold, os.path.join(work, "data", "polyps"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        ["bash", os.path.join(repo, "protosam_tpu_torch", "run_protosam.sh"),
+         "polyp"], cwd=work, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    tail = out.stdout.strip()
+    if out.returncode != 0:
+        raise AssertionError(f"11d: run_protosam.sh polyp exited "
+                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+    result = json.loads(tail[tail.index("{"):])
+    log(f"phase 11d [{smi}]: run_protosam.sh polyp (SAM ViT-H) exit 0 in "
+        f"{wall:.1f} s: {result}")
+    if result["n_slices"] != POLYP_TEST:
+        raise AssertionError(f"11d: {result}")
+    return wall
+
+
+def phase_polyp_parallel(counters: dict, smi: str, tmp: str) -> dict:
+    """Phase 11: 11a-11b on a Kvasir-like fold, 11c multi-GPU, 11d the
+    launcher."""
+    import os
+
+    t0 = time.perf_counter()
+    fold = write_polyp_fold(os.path.join(tmp, "polyps"))
+    evals = phase_polyp_eval(counters, smi, fold)
+    ssl_ms = phase_polyp_ssl(smi, fold)
+    par = phase_parallel(smi)
+    launcher_s = phase_launcher(smi, tmp, fold)
+    wall = time.perf_counter() - t0
+    log(f"phase 11: {wall:.1f} s")
+    return {"launches": {"11a": evals["launches"], **par["launches"]},
+            "polyp_slices_per_sec": evals["slices_per_sec"],
+            "polyp_mean_dice": evals["mean_dice"], "ssl_episode_ms": ssl_ms,
+            "dp_overhead": par["dp_overhead"],
+            "launcher_s": launcher_s, "wall_s": wall}
+
+
 def make_counters() -> dict:
     """kernel -> (its wrapper, the wrapper's count of its launches)"""
     from protosam_tpu_torch.ops.alp import alp_match_fused
@@ -2296,9 +2559,10 @@ def main() -> int:
         alpnet = phase_alpnet_eval(counters, smi, fold)
         sam_tools = phase_sam_tools(counters, smi, tmp)
         data = phase_data(counters, smi, tmp, fold, eval_sps)
+        polyp = phase_polyp_parallel(counters, smi, tmp)
     log(json.dumps(kernel_report(checks, launches, flagship, int8, tools,
                                  eval_launches, train, alpnet, sam_tools,
-                                 data)))
+                                 data, polyp)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,9 +11,9 @@ Arrays are numpy.  The volumes take one of JAX's two ingest paths,
 chosen once a dataset as JAX chooses: MR without CLAHE goes through the
 native C++ feeder (``native/feeder.py``: read, bilinear resize and z-score
 in one pass, bit-equal to JAX's), where g++ is installed; otherwise JAX's
-numpy path, with its ``cv2.resize`` done by ``F.interpolate`` on the CPU:
-bilinear (``align_corners=False``) for images as ``INTER_LINEAR``, nearest
-for labels as ``INTER_NEAREST``.  Labels take the nearest resize on both
+numpy path, with its ``cv2.resize`` reproduced bit for bit in numpy
+(``data/prepare.resize_linear`` for images as ``INTER_LINEAR``,
+``resize_nearest`` for labels as ``INTER_NEAREST``).  Labels take the nearest resize on both
 paths.  ``use_clahe`` applies CLAHE (clip 2.0, 7 x 7 tiles;
 ``data/clahe.py``, cv2's bits) to each raw slice cast to uint8 by numpy, as
 JAX does.
@@ -29,8 +29,6 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from protosam_tpu_torch import native
 from protosam_tpu_torch.data.clahe import clahe
@@ -38,19 +36,17 @@ from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       CircularList,
                                                       get_normalize_op)
 from protosam_tpu_torch.data.nifti import read_nii
+from protosam_tpu_torch.data.prepare import resize_linear, resize_nearest
 
 
 def _resize_slices(vol: np.ndarray, size: int, mode: str) -> np.ndarray:
     """``cv2.resize(vol, (size, size), interpolation=INTER_LINEAR or
-    INTER_NEAREST)`` of an (H, W, Z) float32 stack, slice by slice, on the
-    CPU -> (size, size, Z)."""
-    x = torch.from_numpy(np.ascontiguousarray(vol.transpose(2, 0, 1)))[None]
+    INTER_NEAREST)`` of an (H, W, Z) float32 stack, which cv2 takes as one
+    image of Z channels, bit for bit (``data/prepare.resize_linear`` /
+    ``resize_nearest``) -> (size, size, Z)."""
     if mode == "bilinear":
-        y = F.interpolate(x, size=(size, size), mode="bilinear",
-                          align_corners=False)
-    else:
-        y = F.interpolate(x, size=(size, size), mode="nearest")
-    return y[0].numpy().transpose(1, 2, 0)
+        return resize_linear(vol, size, channels_last=True)
+    return resize_nearest(vol, size, channels_last=True)
 
 
 @dataclass

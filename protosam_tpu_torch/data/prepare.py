@@ -67,13 +67,24 @@ def felzenszwalb(img: np.ndarray, scale: float = 1.0, sigma: float = 1.0,
 
 # ---- the in-plane resize: OpenCV 5's float32 cv2.resize -------------------
 #
-# INTER_LINEAR (measured against cv2 5.0 on every shape the tests hold):
-# the source coordinate (d + 0.5) * (1 / (dst / src)) - 0.5 in float64, its
-# floor, the fraction cast to float32; columns past either border copy the
-# border pixel; rows are clamped into the image; each pass (horizontal
-# first) is one fused multiply-add per pixel, fma(frac, s1 - s0, s0), in
-# every column (no scalar tail takes another form).  INTER_NEAREST:
-# min(floor(d * (1 / (dst / src))), src - 1) in float64.
+# INTER_LINEAR (measured against cv2 5.0 on random shapes, 1 to 30
+# channels).  OpenCV 5 has two float32 bilinear resizes:
+#
+#   * 1, 3 or 4 channels: the source coordinate (d + 0.5) * (src / dst) -
+#     0.5 in float64, its floor, the fraction cast to float32; columns past
+#     either border copy the border pixel; rows are clamped into the image;
+#     each pass (horizontal first) is one fused multiply-add per value,
+#     fma(frac, s1 - s0, s0).  The columns that copy a border pixel take
+#     the vertical pass unfused, s0 + round(frac * (s1 - s0)), when there
+#     are 5-15 of them on their side: channels 0 and 1 of 3, or all 4 of 4.
+#     Longer runs (upscales past ~30x) take a rounding not reproduced here,
+#     and raise;
+#   * other channel counts: the coordinate in float32 from (d + 0.5) *
+#     (1 / (dst / src)) - 0.5, weights (1 - frac, frac) and two rounded
+#     products added, s0 * w0 + s1 * w1, in both passes; border columns
+#     copy, border rows keep their weights on the clamped rows.
+#
+# INTER_NEAREST: min(floor(d * (1 / (dst / src))), src - 1) in float64.
 
 
 def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -92,38 +103,186 @@ def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
 
 
 def _linear_taps(dst: int, src: int):
-    pos = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+    """Lerp taps of the 1/3/4-channel resize: (lo, float32 frac, border)."""
+    pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
     lo = np.floor(pos).astype(np.int64)
-    return lo, (pos - lo).astype(np.float32)
+    return lo, (pos - lo).astype(np.float32), (lo < 0) | (lo >= src - 1)
 
 
-def resize_linear(img: np.ndarray, size: int) -> np.ndarray:
-    """``cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)`` of
-    float32 slices (..., H, W), bit for bit."""
-    img = np.asarray(img, np.float32)
-    h, w = img.shape[-2:]
+def _generic_taps(dst: int, src: int, clamp_weights: bool):
+    """Taps of the other channel counts: (lo, hi, w0, w1).  Border columns
+    take weights (1, 0); border rows keep theirs on the clamped rows."""
+    pos = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(
+        np.float32)
+    lo = np.floor(pos).astype(np.int64)
+    frac = (pos - lo).astype(np.float32)
+    if clamp_weights:
+        frac[(lo < 0) | (lo >= src - 1)] = 0
+    return (np.clip(lo, 0, src - 1), np.clip(lo + 1, 0, src - 1),
+            np.float32(1) - frac, frac)
+
+
+def _unfused_border(cn: int, run: int) -> list[int]:
+    """The channels of a border run of ``run`` columns that take the
+    unfused vertical lerp, as measured (see above)."""
+    if cn == 1 or run <= 4:
+        return []
+    if run > 15:
+        raise NotImplementedError(
+            f"resize_linear: a border run of {run} columns of a {cn}-channel "
+            f"image (an upscale past ~30x) is not reproduced")
+    return [0, 1] if cn == 3 else [0, 1, 2, 3]
+
+
+def _fma32_t(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """``_fma32`` on CPU tensors: float32 ``fma(a, b, c)``, rounded once."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
+                           .to(s.dtype))
+    return torch.where((err != 0) & even, away, s).float()
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _resize_lerp(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    """(..., H, W, C) with C in (1, 3, 4), the fused-lerp resize of each
+    (H, W, C) image (in torch on the CPU: numpy took 8x longer)."""
+    h, w, cn = img.shape[-3:]
+    x = torch.from_numpy(img)
+    lo, frac, edge = _linear_taps(nw, w)
+    left, right = int((lo < 0).sum()), int((lo >= w - 1).sum())
+    s0 = x.index_select(-2, _t(np.clip(lo, 0, w - 1)))
+    s1 = x.index_select(-2, _t(np.minimum(np.clip(lo, 0, w - 1) + 1, w - 1)))
+    f = _t(frac)[:, None]
+    rows = torch.where(_t(edge)[:, None], s0, _fma32_t(f, s1 - s0, s0))
+    lo, frac, _ = _linear_taps(nh, h)
+    r0 = rows.index_select(-3, _t(np.clip(lo, 0, h - 1)))
+    r1 = rows.index_select(-3, _t(np.clip(lo + 1, 0, h - 1)))
+    f = _t(frac)[:, None, None]
+    out = _fma32_t(f, r1 - r0, r0)
+    for cols, run in ((slice(0, left), left), (slice(nw - right, nw),
+                                               right)):
+        chans = _unfused_border(cn, run)
+        if chans:
+            a, b = r0[..., cols, chans], r1[..., cols, chans]
+            out[..., cols, chans] = a + f * (b - a)
+    return out.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_lib() -> ctypes.CDLL:
+    lib = build.load("resize")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.rs_linear.restype = lib.rs_nearest.restype = None
+    lib.rs_linear.argtypes = [ptr, i64, i64, i64, i64] + [ptr] * 10
+    lib.rs_nearest.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(min(os.cpu_count() or 1, 8))
+
+
+def _per_plane(fn, planes: int, size: int) -> None:
+    """``fn(k)`` for every plane k, over the thread pool when the output is
+    large (ctypes calls drop the GIL)."""
+    if size < 1 << 18:
+        for k in range(planes):
+            fn(k)
+    else:
+        list(_resize_pool().map(fn, range(planes)))
+
+
+def _resize_generic(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    """(H, W, C), the weighted-sum resize of the other channel counts, in
+    the native library (``native/resize.cc``: each product and sum rounded
+    to float32 as numpy rounds them), plane by plane.  The result is the
+    (H, W, C) view of a (C, H, W) array: the slice stacks of a volume come
+    so stored, and are read without a copy.  An exact halving of both
+    sides is cv2's INTER_AREA 2 x 2 mean instead, as ``cv2.resize``
+    switches."""
+    h, w, c = img.shape
+    if w == 2 * nw and h == 2 * nh:
+        a, b = img[0::2, 0::2], img[0::2, 1::2]
+        d, e = img[1::2, 0::2], img[1::2, 1::2]
+        return (np.float32(0) + (((a + b) + d) + e)) * np.float32(0.25)
+    taps = [np.ascontiguousarray(v) for v in (*_generic_taps(nw, w, True),
+                                              *_generic_taps(nh, h, False))]
+    ptrs = [v.ctypes.data for v in taps]
+    src = np.ascontiguousarray(img.transpose(2, 0, 1))
+    tmp = np.empty((c, h, nw), np.float32)
+    out = np.empty((c, nh, nw), np.float32)
+    lib = _resize_lib()
+    _per_plane(lambda k: lib.rs_linear(src[k].ctypes.data, h, w, nh, nw,
+                                       *ptrs, tmp[k].ctypes.data,
+                                       out[k].ctypes.data), c, out.size)
+    return out.transpose(1, 2, 0)
+
+
+def _dsize(size) -> tuple[int, int]:
+    """cv2's ``dsize``: one int for a square, else ``(width, height)``."""
+    if isinstance(size, (int, np.integer)):
+        return int(size), int(size)
+    nw, nh = size
+    return int(nw), int(nh)
+
+
+def resize_linear(img: np.ndarray, size, channels_last: bool = False
+                  ) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` of float32
+    images, bit for bit: slices (..., H, W), each resized alone, or one
+    (H, W, C) image of C channels with ``channels_last``, as cv2 takes it;
+    ``size`` is one side or cv2's ``(width, height)``."""
+    img = np.asarray(img, np.float32)  # keeps the layout
+    h, w = img.shape[-3:-1] if channels_last else img.shape[-2:]
     if min(h, w) < 2:
-        raise ValueError(f"resize_linear needs slices of 2 x 2 or more, got "
+        raise ValueError(f"resize_linear needs images of 2 x 2 or more, got "
                          f"{h} x {w}")
-    lo, frac = _linear_taps(size, w)
-    edge = (lo < 0) | (lo >= w - 1)
-    lo = np.clip(lo, 0, w - 1)
-    s0 = img[..., lo]
-    s1 = img[..., np.minimum(lo + 1, w - 1)]
-    rows = np.where(edge, s0, _fma32(frac, s1 - s0, s0))
-    lo, frac = _linear_taps(size, h)
-    r0 = rows[..., np.clip(lo, 0, h - 1), :]
-    r1 = rows[..., np.clip(lo + 1, 0, h - 1), :]
-    return _fma32(frac[:, None], r1 - r0, r0)
+    nw, nh = _dsize(size)
+    if not channels_last:
+        return _resize_lerp(img[..., None], nw, nh)[..., 0]
+    if img.shape[-1] in (1, 3, 4):
+        return _resize_lerp(img, nw, nh)
+    return _resize_generic(img, nw, nh)
 
 
-def resize_nearest(img: np.ndarray, size: int) -> np.ndarray:
-    """``cv2.resize(img, (size, size), interpolation=cv2.INTER_NEAREST)``
-    of slices (..., H, W)."""
-    h, w = img.shape[-2:]
-    idx = lambda n: np.minimum(np.floor(
-        np.arange(size) * (1.0 / (size / n))).astype(np.int64), n - 1)
-    return img[..., idx(h), :][..., idx(w)]
+def _nearest_index(d: int, n: int) -> np.ndarray:
+    return np.minimum(np.floor(np.arange(d) * (1.0 / (d / n))).astype(
+        np.int64), n - 1)
+
+
+def resize_nearest(img: np.ndarray, size, channels_last: bool = False
+                   ) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)`` of slices
+    (..., H, W), or of an (H, W, C) image with ``channels_last``.  A float32
+    stack stored plane by plane (an (H, W, C) view of a (C, H, W) array) is
+    gathered plane by plane in the native library and returned so
+    stored."""
+    nw, nh = _dsize(size)
+    if channels_last and img.ndim == 3 and img.dtype == np.float32 \
+            and img.transpose(2, 0, 1).flags.c_contiguous:
+        planes = img.transpose(2, 0, 1)
+        c, h, w = planes.shape
+        xi, yi = _nearest_index(nw, w), _nearest_index(nh, h)
+        out = np.empty((c, nh, nw), np.float32)
+        lib = _resize_lib()
+        _per_plane(lambda k: lib.rs_nearest(
+            planes[k].ctypes.data, w, nh, nw, xi.ctypes.data,
+            yi.ctypes.data, out[k].ctypes.data), c, out.size)
+        return out.transpose(1, 2, 0)
+    hax = img.ndim - (3 if channels_last else 2)
+    out = np.take(img, _nearest_index(nh, img.shape[hax]), axis=hax)
+    return np.take(out, _nearest_index(nw, img.shape[hax + 1]),
+                   axis=hax + 1)
 
 
 # ---- foreground masks and superpixels --------------------------------------

@@ -6,8 +6,8 @@ superpixel map as a pseudo-label and makes a (support, query) pair by
 sending the same slice twice through independent draws of the geometric
 + intensity augmentation (``num_rep=2``).  The supervised variant uses the
 real labels restricted to ``train_list``.  Volumes resize through the
-data layer's cv2-free resize (``data/medical._resize_slices``: bilinear
-images, nearest labels).  ``use_clahe`` applies CLAHE (clip 4.0 for MR,
+data layer's cv2-free resize (``data/medical._resize_slices``: cv2's
+bilinear for images and nearest for labels, bit for bit).  ``use_clahe`` applies CLAHE (clip 4.0 for MR,
 2.0 for CT, 7 x 7 tiles; ``data/clahe.py``, cv2's bits) to each raw slice
 cast to uint8 by numpy, an MR slice first stretched to 0-255, as JAX does.
 """

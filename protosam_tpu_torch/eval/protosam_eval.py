@@ -20,7 +20,8 @@ and its masks come back in one copy.
 
 ``base_model="SAM"`` runs the oracle baseline instead
 (``run_eval_sam_oracle``): SAM's automatic masks of each slice, the best
-against the label scored.
+against the label scored.  ``dataset="polyps"`` runs the polyp one-shot
+eval (``run_eval_polyp``): RGB PNGs, one ``forward`` an image.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       ORGAN_CLASS)
 from protosam_tpu_torch.data.medical import med_fewshot_val
+from protosam_tpu_torch.data.polyp import PolypDataset
 from protosam_tpu_torch.entry import _allocate, build_pipeline
 from protosam_tpu_torch.models.io_protocol import ALPNetInput
 from protosam_tpu_torch.models.layers import cast_compute
@@ -124,10 +126,12 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
     """Segment the fold of ``cfg`` and score it; ``pipe`` defaults to
     ``build_models(cfg)`` on the card and runs wherever its weights are.
     With ``base_model="SAM"`` it is the oracle's ``SamWrapper``
-    (``run_eval_sam_oracle``)."""
+    (``run_eval_sam_oracle``).  ``dataset="polyps"`` runs
+    ``run_eval_polyp`` whatever ``base_model`` says: JAX asks for
+    ``base_model`` first, and its oracle then fails on a polyp fold
+    (``DATASET_INFO`` has no ``polyps``)."""
     if cfg.dataset.lower() == "polyps":
-        raise NotImplementedError("the polyp data layer is not ported yet "
-                                  "(ROADMAP §1 item 24)")
+        return run_eval_polyp(cfg, pipe)
     if cfg.base_model.upper() == "SAM":
         return run_eval_sam_oracle(cfg, wrapper=pipe)
     base = cfg.dataset.split("_")[0]
@@ -302,4 +306,52 @@ def run_eval_sam_oracle(cfg: Config, wrapper: SamWrapper | None = None
                   cases.items()},
         "n_slices": len(dice_list),
         "slices_per_sec": len(dice_list) / elapsed if elapsed > 0 else 0.0,
+    }
+
+
+def run_eval_polyp(cfg: Config, pipe: ProtoSAM | None = None) -> dict:
+    """Polyp one-shot eval (reference validation_protosam.py:244-249,
+    307-313; JAX ``run_eval_polyp``): the support drawn from the train
+    split, every test image a query, one ``pipe.forward`` each at the SAM
+    frame (``cfg.input_size[0]`` from 256 up, else 1024).  ``pipe``
+    defaults to ``build_models(cfg)`` on the card and runs wherever its
+    weights are."""
+    sam_frame = cfg.input_size[0] if cfg.input_size[0] >= 256 else 1024
+    tr = PolypDataset(cfg.data_dir("polyps"), train=True,
+                      image_size=sam_frame, seed=cfg.seed)
+    te = PolypDataset(cfg.data_dir("polyps"), train=False,
+                      image_size=sam_frame, seed=cfg.seed)
+    pipe = pipe or build_models(cfg)
+    dev = next(pipe.coarse_model.parameters()).device
+
+    sup_imgs, sup_gts, _ = tr.get_support(
+        n_support=cfg.n_support, text_file=cfg.support_txt_file)
+    sup_img = torch.from_numpy(np.concatenate(sup_imgs, axis=0)).to(dev)
+    sup_msk = torch.from_numpy(np.concatenate(sup_gts, axis=0)).to(dev)
+
+    mean_dice, mean_prec, mean_rec, mean_iou = [], [], [], []
+    cases = defaultdict(list)
+    t0 = time.time()
+    for i in range(len(te)):
+        s = te[i]
+        qry = torch.from_numpy(s["image"])[None].to(dev)
+        inp = ALPNetInput(sup_img, sup_msk, qry, isval=True,
+                          val_wsize=cfg.val_wsize)
+        pred, _ = pipe.forward(qry, inp)
+        m = dice_iou_precision_recall(pred.cpu().numpy(), s["label"])
+        mean_dice.append(m["dice"])
+        mean_prec.append(m["precision"])
+        mean_rec.append(m["recall"])
+        mean_iou.append(m["iou"])
+        cases[s["case"]].append(m["dice"])
+    elapsed = time.time() - t0
+    return {
+        "mar_val_batches_meanDice": float(np.mean(mean_dice)),
+        "mar_val_batches_meanPrec": float(np.mean(mean_prec)),
+        "mar_val_al_batches_meanRec": float(np.mean(mean_rec)),
+        "mar_val_al_batches_meanIOU": float(np.mean(mean_iou)),
+        "cases": {k: {"meanDice": float(np.mean(v))}
+                  for k, v in cases.items()},
+        "n_slices": len(te),
+        "slices_per_sec": len(te) / elapsed if elapsed else 0.0,
     }

@@ -34,9 +34,11 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 valid_tokens: int | None) -> torch.Tensor:
-        hd = x.shape[-1] // self.num_heads
+        qkv = self.qkv(x)
+        # the head width from qkv: a tensor-parallel shard holds fewer heads
+        hd = qkv.shape[-1] // (3 * self.num_heads)
         out = masked_flash_attention_packed(
-            self.qkv(x), scale=hd ** -0.5, num_heads=self.num_heads,
+            qkv, scale=hd ** -0.5, num_heads=self.num_heads,
             n_valid=valid_tokens)
         return self.proj(out)
 

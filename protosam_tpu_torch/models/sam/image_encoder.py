@@ -75,9 +75,10 @@ class Attention(nn.Module):
         """x (B, H, W, C) -> proj(attention), plus ``residual`` when given:
         under bf16 without ``quant_dense`` the projection and the add run as
         kernel K6 on the flattened (B·H·W, C) rows."""
-        b, h, w, c = x.shape
+        b, h, w = x.shape[:3]
         nh = self.num_heads
         qkv = self.qkv(x)                                  # (B, H, W, 3C)
+        c = qkv.shape[-1] // 3  # fewer under a tensor-parallel shard
         q = qkv[..., :c].reshape(b, h, w, nh, c // nh)
         win = self.window_size
         if win == 0:

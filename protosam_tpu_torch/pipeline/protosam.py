@@ -17,6 +17,7 @@ of validation_protosam.py:220-232.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -277,6 +278,75 @@ class ProtoSAM:
             preds.append(p)
             scores.append(s)
         return torch.cat(preds)[:n], torch.cat(scores)[:n]
+
+    def _mesh_pipeline(self, mesh, shard_params: bool) -> "ProtoSAM":
+        """This pipeline, or for ``shard_params`` a copy whose encoders
+        hold this rank's Megatron shards (``parallel.
+        encoder_param_sharding``), cached on the grid's shape and this
+        rank's place in it and on the weights' identities and
+        ``_version``s, so a weight swap (in place or by new tensors)
+        builds the copy anew: JAX's cache (``protosam.py:500-518``) keys on
+        the mesh only and serves the old weights after a swap.  The
+        row-parallel layers take ``mesh``'s model group at every call."""
+        if not shard_params or mesh.n_model == 1:
+            return self
+        from protosam_tpu_torch.parallel.sharding import (
+            RowParallelLinear, encoder_param_sharding)
+
+        weights = tuple((id(p), p._version) for m in (self.coarse_model,
+                                                      self.sam_model)
+                        for p in m.parameters())
+        key = (mesh.n_data, mesh.n_model, mesh.data_rank, mesh.model_rank,
+               weights)
+        cached = getattr(self, "_mesh_pipe", None)
+        if cached is None or cached[0] != key:
+            self._mesh_pipe = None  # free the old copy first
+            coarse = copy.deepcopy(self.coarse_model)
+            sam = copy.deepcopy(self.sam_model)
+            encoder_param_sharding(coarse, mesh)
+            encoder_param_sharding(sam, mesh)
+            self._mesh_pipe = (key, type(self)(coarse, sam, self.config))
+        pipe = self._mesh_pipe[1]
+        for m in (pipe.coarse_model, pipe.sam_model):
+            for layer in m.modules():
+                if isinstance(layer, RowParallelLinear):
+                    layer.group = mesh.model_group
+        return pipe
+
+    def forward_volume_sharded(self, queries: torch.Tensor,
+                               coarse_model_input: ALPNetInput, mesh,
+                               slice_batch: int | None = None,
+                               shard_params: bool = False):
+        """Multi-GPU volume inference (JAX ``forward_volume_sharded``), one
+        process a rank of ``mesh`` (``parallel.make_mesh``), each given the
+        same ``queries`` (N, 3, H, W).  ``slice_batch`` (default the data
+        size) is rounded up to a multiple of the data size and split over
+        the data ranks; N is padded to a multiple of it, each data rank
+        runs ``forward_volume`` on its contiguous block with no collective,
+        and the preds and scores are then all-gathered over the data
+        group, so every rank returns the whole volume, as JAX's global
+        array is.
+
+        ``shard_params=True`` Megatron-shards both encoders over the model
+        axis (tensor parallelism: the ranks of a model group run the same
+        slices on their shards and all-reduce each row-parallel output).
+        Returns (preds (N, H, W), scores (N, K))."""
+        from protosam_tpu_torch.parallel.sharding import all_gather
+
+        pipe = self._mesh_pipeline(mesh, shard_params)
+        n = queries.shape[0]
+        local = -(-(slice_batch or mesh.n_data) // mesh.n_data)
+        pad = (-n) % (local * mesh.n_data)
+        if pad:
+            queries = torch.cat([queries, queries[-1:].expand(pad, -1, -1,
+                                                              -1)])
+        block = queries.shape[0] // mesh.n_data
+        lo = mesh.data_rank * block
+        preds, scores = pipe.forward_volume(queries[lo:lo + block],
+                                            coarse_model_input,
+                                            slice_batch=local)
+        return tuple(torch.cat(all_gather(x, mesh.data_group))[:n]
+                     for x in (preds, scores))
 
     def forward(self, query_image: torch.Tensor,
                 coarse_model_input: ALPNetInput, degrees_rotate: int = 0):

@@ -1,34 +1,117 @@
-"""Checkpoints: the reference's ``.pth`` snapshots into the port's modules
-(JAX ``utils/checkpoint.py:29-70``), and the trainer's rolling snapshots
-(``CheckpointManager``).
+"""Checkpoints: the reference's ``.pth`` snapshots and the JAX package's
+orbax checkpoints into the port's modules (JAX ``utils/checkpoint.py``),
+and the trainer's rolling snapshots (``CheckpointManager``).
 
 The reference saves plain ``torch.save(state_dict)`` snapshots
 (training.py:235-238) and reloads them strictly (grid_proto_fewshot.py:41-44).
 The port's modules use the reference's key names, so a snapshot loads
 as it is; the layout is auto-detected as JAX's ``load_torch_snapshot``
-does.  Orbax checkpoints are JAX's and are not read here (ROADMAP §1
-item 26); the trainer's snapshots are the port's own ``torch.save`` files.
+does.  An orbax checkpoint (JAX's ``save_params``, or a step of its
+``CheckpointManager``) is read without orbax, which imports jax: its
+``_METADATA`` names the tree, and ``tensorstore`` reads each array through
+the OCDBT key-value store and the zarr driver orbax wrote them with; the
+params go through the converters of ``utils/convert.py``.  The trainer's
+snapshots are the port's own ``torch.save`` files.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 
+import numpy as np
 import torch
+
+from protosam_tpu_torch.utils import convert
 
 _RESNET = ("backbone.", "localconv.")
 
 
 def load_params(path: str) -> dict[str, torch.Tensor]:
-    """A ``.pth`` / ``.pt`` snapshot as a state_dict
-    (``load_torch_snapshot``); anything else is taken for an orbax
-    directory, which JAX writes and the port does not read."""
+    """A ``.pth`` / ``.pt`` snapshot (``load_torch_snapshot``), or an orbax
+    checkpoint directory (``load_orbax``), as a state_dict."""
     if path.endswith((".pth", ".pt")):
         return load_torch_snapshot(path)
-    raise NotImplementedError(
-        f"{path!r} is not a .pth/.pt snapshot; orbax checkpoints are the "
-        f"JAX package's and are not read by the port")
+    return load_orbax(path)
+
+
+def _checkpoint_dir(directory: str) -> str:
+    """``directory`` itself, or the newest step of a CheckpointManager
+    directory (``<step>/default``)."""
+    if os.path.isfile(os.path.join(directory, "_METADATA")):
+        return directory
+    steps = sorted((int(d) for d in os.listdir(directory) if d.isdigit()),
+                   reverse=True) if os.path.isdir(directory) else []
+    for step in steps:
+        for sub in ("default", ""):
+            d = os.path.join(directory, str(step), sub)
+            if os.path.isfile(os.path.join(d, "_METADATA")):
+                return d
+    raise FileNotFoundError(f"{directory!r} holds no orbax checkpoint "
+                            f"(no _METADATA, no step directory with one)")
+
+
+def read_orbax(directory: str) -> dict:
+    """The tree of an orbax checkpoint as nested dicts of numpy arrays
+    (sequence entries keyed by their index; bfloat16 arrays upcast to
+    float32, which is exact); ``None`` leaves are left out.  Needs
+    ``tensorstore``, not orbax or jax."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("reading an orbax checkpoint needs the "
+                          "'tensorstore' package, which is not installed"
+                          ) from e
+    d = os.path.abspath(_checkpoint_dir(directory))
+    with open(os.path.join(d, "_METADATA")) as f:
+        meta = json.load(f)
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    if not meta.get("use_ocdbt", True):
+        raise NotImplementedError(f"{d!r}: only OCDBT orbax checkpoints are "
+                                  f"read")
+    tree: dict = {}
+    for entry in meta["tree_metadata"].values():
+        if entry["value_metadata"].get("skip_deserialize"):
+            continue
+        keys = [k["key"] for k in entry["key_metadata"]]
+        spec = {"driver": driver,
+                "kvstore": {"driver": "ocdbt", "base": f"file://{d}/",
+                            "path": ".".join(keys) + "/"}}
+        leaf = np.asarray(ts.open(spec, open=True).result().read().result())
+        if leaf.dtype.name == "bfloat16":
+            leaf = leaf.astype(np.float32)
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
+
+
+def _sam_globals(params: dict) -> tuple[int, ...]:
+    from protosam_tpu_torch.models.sam.registry import _CONFIGS
+
+    width = np.asarray(params["image_encoder"]["pos_embed"]).shape[-1]
+    for cfg in _CONFIGS.values():
+        if cfg["encoder_embed_dim"] == width:
+            return cfg["encoder_global_attn_indexes"]
+    raise ValueError(f"no SAM of width {width}")
+
+
+def load_orbax(directory: str) -> dict[str, torch.Tensor]:
+    """An orbax checkpoint of JAX params as the port's state_dict: a
+    ``FewShotSeg``'s (``{"encoder": ...}``, DINOv2 or ResNet-101) or a
+    SAM's (``image_encoder`` ...), through ``utils/convert``; a trainer
+    step's ``params`` are taken from its state."""
+    tree = read_orbax(directory)
+    params = tree.get("params", tree)
+    if "image_encoder" in params:
+        return convert.sam_state_dict(params, _sam_globals(params))
+    if "encoder" in params:
+        return convert.fewshot_state_dict(params)
+    raise ValueError(f"{directory!r}: neither FewShotSeg params (encoder) "
+                     f"nor SAM params (image_encoder): "
+                     f"{sorted(params)[:5]}")
 
 
 def load_torch_snapshot(path: str) -> dict[str, torch.Tensor]:

@@ -11,6 +11,9 @@ masks."""
 import dataclasses
 import json
 import pathlib
+import sys
+
+import numpy as np
 
 import pytest
 import torch
@@ -152,8 +155,62 @@ def test_deeplab_snapshot_names_its_roadmap_item(tmp_path, prefix):
 
 
 def test_orbax_directory_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
+    """A directory that holds no orbax checkpoint is refused, and says so
+    (orbax checkpoints themselves are read: the tests below)."""
+    with pytest.raises(FileNotFoundError, match="orbax"):
         checkpoint.load_params(str(tmp_path))
+
+
+@pytest.mark.parametrize("kind", ["alpnet", "sam"])
+def test_orbax_params_load_as_converted(tmp_path, states, kind):
+    """A checkpoint JAX's ``save_params`` wrote loads into the port's
+    state_dict equal to ``utils/convert`` of the same params."""
+    dino, sam = states
+    if kind == "sam":
+        params = jconvert.convert_sam({k: v.numpy() for k, v in sam.items()})
+        want = convert.sam_state_dict(params, VIT_T_GLOBAL)
+    else:
+        params = {"encoder": jconvert.convert_dinov2(
+            {k: v.numpy() for k, v in dino.items()})}
+        want = convert.fewshot_state_dict(params)
+    jcheckpoint.save_params(str(tmp_path / "ck"), params)
+    _assert_same(checkpoint.load_params(str(tmp_path / "ck")), want)
+
+
+def test_orbax_manager_step_loads_its_params(tmp_path, states):
+    """A step of JAX's ``CheckpointManager`` (the trainer's state: params,
+    optimizer state, step) loads the newest step's params."""
+    import optax
+
+    from protosam_tpu.train.step import TrainState
+
+    dino, _ = states
+    params = {"encoder": jconvert.convert_dinov2(
+        {k: v.numpy() for k, v in dino.items()})}
+    old = {"encoder": {k: v for k, v in params["encoder"].items()}}
+    old["encoder"]["norm"] = {k: v * 0 for k, v in
+                              params["encoder"]["norm"].items()}
+    opt = optax.sgd(0.1, momentum=0.9)
+    mngr = jcheckpoint.CheckpointManager(str(tmp_path / "snaps"))
+    for step, p in ((2, old), (4, params)):
+        mngr.save(step, TrainState(p, opt.init(p), np.int32(step)))
+    mngr.wait()
+    _assert_same(checkpoint.load_params(str(tmp_path / "snaps")),
+                 convert.fewshot_state_dict(params))
+    tree = checkpoint.read_orbax(str(tmp_path / "snaps" / "2" / "default"))
+    assert int(tree["step"]) == 2 and set(tree) == {"params", "opt_state",
+                                                    "step"}
+
+
+def test_orbax_without_tensorstore_names_the_package(tmp_path, states,
+                                                     monkeypatch):
+    dino, _ = states
+    params = {"encoder": jconvert.convert_dinov2(
+        {k: v.numpy() for k, v in dino.items()})}
+    jcheckpoint.save_params(str(tmp_path / "ck"), params)
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="tensorstore"):
+        checkpoint.load_params(str(tmp_path / "ck"))
 
 
 def test_strict_load_names_missing_and_unexpected_keys(states, monkeypatch):

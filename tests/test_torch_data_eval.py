@@ -30,7 +30,7 @@ from torch_parity import (dice, jax_coarse_params, jax_sam_params,
                                 record_calls, seeded_state_dict)
 
 import protosam_tpu_torch.native
-from protosam_tpu_torch.data import medical, nifti
+from protosam_tpu_torch.data import medical, nifti, png
 from protosam_tpu_torch.eval import protosam_eval
 from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
 from protosam_tpu_torch.models.sam.registry import build_sam
@@ -96,8 +96,8 @@ def _datasets(data_dir, size, native, monkeypatch):
 @pytest.mark.parametrize("native", [False, True], ids=["cv2", "native"])
 def test_medical_dataset_matches_jax(data_dir, monkeypatch, size, native):
     """Slice order, scan ids, part_assign and the support set as JAX's;
-    labels bit-equal; images within 1e-4 relative of JAX's cv2 path (both
-    feeders off), and bit-equal to JAX's native feeder (both on)."""
+    labels and images bit-equal, to JAX's cv2 path (both feeders off) and
+    to JAX's native feeder (both on)."""
     calls = protosam_tpu_torch.native.feeder.calls
     (jval, jparent), (val, parent) = _datasets(data_dir, size, native,
                                                monkeypatch)
@@ -108,7 +108,7 @@ def test_medical_dataset_matches_jax(data_dir, monkeypatch, size, native):
     assert parent.idx_by_class == jparent.idx_by_class
     assert [(r.scan_id, r.z_id, r.nframe) for r in parent.actual_dataset] \
         == [(r.scan_id, r.z_id, r.nframe) for r in jparent.actual_dataset]
-    tol = dict(rtol=0, atol=0) if native else dict(rtol=1e-4, atol=1e-4)
+    tol = dict(rtol=0, atol=0)
     for cls in (2, 4):
         val.set_curr_cls(cls)
         jval.set_curr_cls(cls)
@@ -139,7 +139,7 @@ def test_dataset_scan_helpers_match_jax(data_dir, monkeypatch, use_3_slices):
               image_size=80, use_3_slices=use_3_slices)
     ours, theirs = medical.MedicalVolumeDataset(**kw), \
         jmedical.MedicalVolumeDataset(**kw)
-    tol = dict(rtol=1e-4, atol=1e-4)
+    tol = dict(rtol=0, atol=0)
 
     def same(a, b):
         if isinstance(a, dict):
@@ -360,20 +360,47 @@ def test_run_eval_modes_agree(data_dir, port_pipe):
     assert vol == slc
 
 
-@pytest.mark.parametrize("overrides,match", [
-    (dict(base_model="SAM", dataset="polyps"), "item 24"),
-    (dict(dataset="polyps"), "item 24")],
+@pytest.mark.parametrize("overrides", [
+    dict(base_model="SAM", dataset="polyps"), dict(dataset="polyps")],
     ids=["sam-oracle", "polyps"])
-def test_run_eval_refuses_what_is_not_ported(data_dir, port_pipe, overrides,
-                                             match):
-    """The polyp data layer is not ported: ``run_eval`` refuses polyps,
-    through the pipeline and through the SAM oracle (which runs on the
-    NIfTI datasets: ``tests/test_torch_sam_tools.py``)."""
-    cfg = _cfg(Config, data_dir)
+def test_run_eval_refuses_what_is_not_ported(port_pipe, tmp_path, overrides):
+    """``run_eval(dataset="polyps")`` takes the polyp branch, through the
+    pipeline and with ``base_model="SAM"`` too (JAX asks for base_model
+    first, and its oracle then fails on a polyp fold): the result is
+    ``run_eval_polyp``'s, with JAX's keys.  The branch itself is held to
+    JAX's in ``tests/test_torch_polyp.py``."""
+    rng = np.random.default_rng(0)
+    kvasir = tmp_path / "Kvasir"
+    for sub in ("images", "masks"):
+        (kvasir / sub).mkdir(parents=True)
+    for i in range(3):
+        png.write_png(str(kvasir / "images" / f"k{i}.png"),
+                      rng.integers(0, 255, (48, 64, 3)).astype(np.uint8))
+        mask = np.zeros((48, 64), np.uint8)
+        mask[10 + 4 * i:30, 20:40 + 5 * i] = 255
+        png.write_png(str(kvasir / "masks" / f"k{i}.png"), mask)
+    (kvasir / "split.txt").write_text("train:\nk0\nval:\ntest:\nk1\nk2\n")
+    cfg = _cfg(Config, "")
+    cfg.data_dirs = {"polyps": str(tmp_path)}
+    cfg.input_size = (SAM_FRAME, SAM_FRAME)
     for k, v in overrides.items():
         setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        protosam_eval.run_eval(cfg, pipe=port_pipe)
+    calls = []
+    orig = protosam_eval.run_eval_polyp
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(protosam_eval, "run_eval_polyp",
+                   lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+        got = protosam_eval.run_eval(cfg, pipe=port_pipe)
+    assert calls == [1]
+    want = orig(cfg, port_pipe)
+    assert set(got) == {"mar_val_batches_meanDice", "mar_val_batches_meanPrec",
+                        "mar_val_al_batches_meanRec",
+                        "mar_val_al_batches_meanIOU", "cases", "n_slices",
+                        "slices_per_sec"}
+    for r in (got, want):
+        r.pop("slices_per_sec")
+    assert got == want and got["n_slices"] == 2
+    assert set(got["cases"]) == {"Kvasir"}
 
 
 def test_resolve_test_class_matches_jax():

@@ -52,7 +52,8 @@ TOOLS = ("bench_fc2", "microbench_attn", "bench_attn", "bench_dino_flash",
          "bench_cca", "bench_mlp_kernel", "bench_dino_encoder",
          "bench_sam_encoder", "pipeline_profile", "trace_volume",
          "roofline", "ptxas_report", "microbench_int8",
-         "measure_int8_drift", "stamp_int8", "trace_train_step")
+         "measure_int8_drift", "stamp_int8", "trace_train_step",
+         "measure_dp_scaling", "dp_aggregate_artifact")
 
 
 @functools.cache

@@ -427,9 +427,10 @@ def test_build_models_passes_routes_and_seed():
 
 
 @pytest.mark.parametrize("overrides,err", [
-    # an orbax checkpoint directory: JAX's format, not read by the port
+    # a directory that holds no orbax checkpoint (orbax checkpoints are
+    # read: tests/test_torch_checkpoint.py)
     (dict(modelname="dinov2_t14", protosam_sam_ver="vit_t",
-          reload_model_path="alpnet_orbax"), NotImplementedError),
+          reload_model_path="alpnet_orbax"), FileNotFoundError),
     # a coarse backbone the port does not have (the DeepLab ResNet-101,
     # the Config default, is ported)
     (dict(modelname="dlfcn_res50", protosam_sam_ver="vit_t"), KeyError),
