@@ -1214,7 +1214,7 @@ def counted_eval(tag: str, cfg, pipe, counters: dict, mode: str = "volume"
 
 def _metrics(result: dict) -> dict:
     return {k: v for k, v in result.items()
-            if k not in ("slices_per_sec", "stage_timings", "launches")}
+            if k not in ("slices_per_sec", "trace", "launches")}
 
 
 def phase_eval(counters: dict, smi: str, tmp: str
@@ -1261,8 +1261,7 @@ def phase_eval(counters: dict, smi: str, tmp: str
         if not same or _metrics(pth) != _metrics(mem):
             raise AssertionError(f"{tag}: the .pth build differs from "
                                  f"the in-memory build")
-        vol_ms = (pth["stage_timings"]["volume_chunk"]["total_s"]
-                  / pth["n_slices"] * 1e3)
+        vol_ms = pth["trace"]["eval.segment"]["total_ms"] / pth["n_slices"]
         log(f"phase {tag} [{smi}]: run_eval {pth['slices_per_sec']:.2f} "
             f"slices/s ({1e3 / pth['slices_per_sec']:.2f} ms/slice) "
             f"beside forward_volume {vol_ms:.2f} ms/slice on the same "

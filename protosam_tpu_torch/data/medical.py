@@ -17,6 +17,14 @@ numpy path, with its ``cv2.resize`` reproduced bit for bit in numpy
 paths.  ``use_clahe`` applies CLAHE (clip 2.0, 7 x 7 tiles;
 ``data/clahe.py``, cv2's bits) to each raw slice cast to uint8 by numpy, as
 JAX does.
+
+Loading is traced (``utils/profiling.py``) per scan: ``data.read_header``
+(``read_nii`` of the image), ``data.decode`` (a file's bytes to voxels:
+the native feeder's reads, the numpy path's label read),
+``data.preprocess`` (resize + normalize), ``data.labels`` (the labels'
+resize) and ``data.index`` (the slice records; once more for the class
+files); ``read_nii`` and the feeder count ``bytes_read`` (compressed) and
+``bytes_decoded`` on the spans open around them.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       get_normalize_op)
 from protosam_tpu_torch.data.nifti import read_nii
 from protosam_tpu_torch.data.prepare import resize_linear, resize_nearest
+from protosam_tpu_torch.utils import profiling
 
 
 def _resize_slices(vol: np.ndarray, size: int, mode: str) -> np.ndarray:
@@ -108,8 +117,9 @@ class MedicalVolumeDataset:
         self.scan_z_idx: dict[str, list[int]] = {}
         self.info_by_scan: dict[str, Any] = {}
         self._read_dataset()
-        self.overall_slice_by_cls = self._read_classfiles()
-        self._update_subclass_lookup()
+        with profiling.span("data.index"):
+            self.overall_slice_by_cls = self._read_classfiles()
+            self._update_subclass_lookup()
 
     # -- loading -----------------------------------------------------------
 
@@ -118,41 +128,47 @@ class MedicalVolumeDataset:
                       and native.native_available())
         glb_idx = 0
         for scan_id in self.pid_curr_load:
-            img_meta = read_nii(f"{self.base_dir}/image_{scan_id}.nii.gz",
-                                peel_info=False)
+            with profiling.span("data.read_header", scan=scan_id):
+                img_meta = read_nii(
+                    f"{self.base_dir}/image_{scan_id}.nii.gz",
+                    peel_info=False)
             self.info_by_scan[scan_id] = img_meta
             if use_native:
                 # C++ single-pass read+resize+normalize (hot ingest path)
                 vol, _ = native.read_volume_native(
                     f"{self.base_dir}/image_{scan_id}.nii.gz")
-                img = native.preprocess_volume_native(
-                    vol, self.image_size, "MR").transpose(1, 2, 0)
+                with profiling.span("data.preprocess", scan=scan_id):
+                    img = native.preprocess_volume_native(
+                        vol, self.image_size, "MR").transpose(1, 2, 0)
                 lbv, _ = native.read_volume_native(
                     f"{self.base_dir}/label_{scan_id}.nii.gz")
-                lb = _resize_slices(lbv.transpose(1, 2, 0), self.image_size,
-                                    "nearest")
+                with profiling.span("data.labels", scan=scan_id):
+                    lb = _resize_slices(lbv.transpose(1, 2, 0),
+                                        self.image_size, "nearest")
             else:
-                img = img_meta.array
-                if self.use_clahe:
-                    img = clahe(img.astype(np.uint8), 2.0)
-                img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
-
-                lb = read_nii(f"{self.base_dir}/label_{scan_id}.nii.gz")
-                lb = np.float32(lb.transpose(1, 2, 0))
-
-                img = _resize_slices(np.float32(img), self.image_size,
-                                     "bilinear")
-                lb = _resize_slices(lb, self.image_size, "nearest")
-            nframe = img.shape[-1]
-            self.scan_z_idx[scan_id] = [-1] * nframe
-            for ii in range(nframe):
-                self.actual_dataset.append(SliceRecord(
-                    img=img[..., ii:ii + 1], lb=lb[..., ii:ii + 1],
-                    is_start=(ii == 0), is_end=(ii == nframe - 1),
-                    nframe=nframe if ii == 0 else -1,
-                    scan_id=scan_id, z_id=ii))
-                self.scan_z_idx[scan_id][ii] = glb_idx
-                glb_idx += 1
+                with profiling.span("data.preprocess", scan=scan_id):
+                    img = img_meta.array
+                    if self.use_clahe:
+                        img = clahe(img.astype(np.uint8), 2.0)
+                    img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
+                    img = _resize_slices(np.float32(img), self.image_size,
+                                         "bilinear")
+                with profiling.span("data.decode", scan=scan_id):
+                    lb = read_nii(f"{self.base_dir}/label_{scan_id}.nii.gz")
+                with profiling.span("data.labels", scan=scan_id):
+                    lb = _resize_slices(np.float32(lb.transpose(1, 2, 0)),
+                                        self.image_size, "nearest")
+            with profiling.span("data.index", scan=scan_id):
+                nframe = img.shape[-1]
+                self.scan_z_idx[scan_id] = [-1] * nframe
+                for ii in range(nframe):
+                    self.actual_dataset.append(SliceRecord(
+                        img=img[..., ii:ii + 1], lb=lb[..., ii:ii + 1],
+                        is_start=(ii == 0), is_end=(ii == nframe - 1),
+                        nframe=nframe if ii == 0 else -1,
+                        scan_id=scan_id, z_id=ii))
+                    self.scan_z_idx[scan_id][ii] = glb_idx
+                    glb_idx += 1
         self.size = len(self.actual_dataset)
 
     def _read_classfiles(self):

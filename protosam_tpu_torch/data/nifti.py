@@ -12,17 +12,22 @@ i.e. the transpose of the on-disk (x, y, z) Fortran order — so slice
 indexing in the datasets behaves identically to the reference.
 
 A copy of ``protosam_tpu/data/nifti.py`` (numpy, gzip and struct only), so
-that this package needs no JAX.
+that this package needs no JAX.  ``read_nii`` counts the file's bytes
+(``bytes_read``) and the bytes it decompressed (``bytes_decoded``) on the
+spans open around it (``utils/profiling.count``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import os
 import struct
 from pathlib import Path
 
 import numpy as np
+
+from protosam_tpu_torch.utils import profiling
 
 _DTYPES = {
     2: np.uint8, 4: np.int16, 8: np.int32, 16: np.float32, 64: np.float64,
@@ -84,6 +89,8 @@ def read_nii(path: str | Path, peel_info: bool = True):
         count = int(np.prod(shape_xyz[:3]))
         raw = f.read(count * dtype.itemsize)
         data = np.frombuffer(raw, dtype=dtype, count=count)
+    profiling.count("bytes_read", os.path.getsize(path))
+    profiling.count("bytes_decoded", vox_offset + len(raw))
 
     # on-disk is Fortran-order (x fastest); expose as (z, y, x)
     arr = data.reshape(shape_xyz[:3][::-1])

@@ -16,7 +16,13 @@ aggregate per case and overall.  Two modes:
                     ``cfg.slice_batch`` slices a batch.
 
 Either way a chunk's queries reach the device in one host-to-device copy
-and its masks come back in one copy.
+and its masks come back in one copy, which is the one wait on the device.
+The call is one ``eval.run`` span (``utils/profiling.py``) over
+``eval.load_fold`` (the ``data.*`` spans), ``eval.support``,
+``eval.gather_queries``, then per chunk ``eval.to_device``,
+``eval.segment`` (the ``pipeline.*`` spans, ended by the masks' copy) and
+``eval.score``, and last ``eval.detection``; ``slices_per_sec`` is the
+scored slices over ``eval.run``'s duration, the fold's load included.
 
 ``base_model="SAM"`` runs the oracle baseline instead
 (``run_eval_sam_oracle``): SAM's automatic masks of each slice, the best
@@ -46,12 +52,12 @@ from protosam_tpu_torch.models.sam.registry import build_sam
 from protosam_tpu_torch.models.samwrapper import SamWrapper
 from protosam_tpu_torch.pipeline.protomedsam import ProtoMedSAM
 from protosam_tpu_torch.pipeline.protosam import ProtoSAM, ProtoSAMConfig
+from protosam_tpu_torch.utils import profiling
 from protosam_tpu_torch.utils.checkpoint import load_params
 from protosam_tpu_torch.utils.config import Config
 from protosam_tpu_torch.utils.detection import (eval_detection,
                                                 get_bounding_box)
 from protosam_tpu_torch.utils.metrics import dice_iou_precision_recall
-from protosam_tpu_torch.utils.profiling import StageTimer
 
 log = logging.getLogger("protosam_eval")
 
@@ -129,7 +135,11 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
     (``run_eval_sam_oracle``).  ``dataset="polyps"`` runs
     ``run_eval_polyp`` whatever ``base_model`` says: JAX asks for
     ``base_model`` first, and its oracle then fails on a polyp fold
-    (``DATASET_INFO`` has no ``polyps``)."""
+    (``DATASET_INFO`` has no ``polyps``).  With ``profile`` the result
+    also holds ``trace``: ``profiling.summary`` of the call's own spans
+    (count, total, self and, with tracing enabled, device ms a name, and
+    the counts on them).  The ``eval.run`` span, and ``slices_per_sec``,
+    cover the fold's load and not the building of ``pipe``."""
     if cfg.dataset.lower() == "polyps":
         return run_eval_polyp(cfg, pipe)
     if cfg.base_model.upper() == "SAM":
@@ -137,83 +147,105 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
     base = cfg.dataset.split("_")[0]
     suffix = "_672" if cfg.input_size[0] > 256 else ""
     data_key = base + suffix if base + suffix in cfg.data_dirs else cfg.dataset
-    te_dataset, _ = med_fewshot_val(
-        dataset_name=base,
-        base_dir=cfg.data_dir(data_key),
-        idx_split=cfg.eval_fold,
-        act_labels=sorted(DATASET_INFO[base]["LABEL_GROUP"]["pa_all"]),
-        npart=cfg.n_sup_part,
-        image_size=cfg.input_size[0],
-        use_clahe=cfg.use_clahe,
-        use_3_slices=cfg.use_3_slices,
-    )
-    te_dataset.set_curr_cls(resolve_test_class(cfg))
-
     pipe = pipe or build_models(cfg)
     dev = next(pipe.coarse_model.parameters()).device
+    with profiling.span("eval.run", mode=mode) as run:
+        with profiling.span("eval.load_fold") as load:
+            te_dataset, volumes = med_fewshot_val(
+                dataset_name=base,
+                base_dir=cfg.data_dir(data_key),
+                idx_split=cfg.eval_fold,
+                act_labels=sorted(
+                    DATASET_INFO[base]["LABEL_GROUP"]["pa_all"]),
+                npart=cfg.n_sup_part,
+                image_size=cfg.input_size[0],
+                use_clahe=cfg.use_clahe,
+                use_3_slices=cfg.use_3_slices,
+            )
+            te_dataset.set_curr_cls(resolve_test_class(cfg))
+            load.attrs["scans"] = len(volumes.scan_z_idx)
 
-    sup = te_dataset.get_support_set(
-        {"support_idx": cfg.support_idx, "task": cfg.task})
-    all_sup_imgs, all_sup_masks = sup["support_images"], sup["support_labels"]
-    support_scan_ids = set(sup["support_scan_id"])
+        with profiling.span("eval.support"):
+            sup = te_dataset.get_support_set(
+                {"support_idx": cfg.support_idx, "task": cfg.task})
+        all_sup_imgs = sup["support_images"]
+        all_sup_masks = sup["support_labels"]
+        support_scan_ids = set(sup["support_scan_id"])
 
-    mean_dice, mean_prec, mean_rec, mean_iou = [], [], [], []
-    dice_cases, iou_cases = defaultdict(list), defaultdict(list)
-    bboxes_w_scores = []
+        mean_dice, mean_prec, mean_rec, mean_iou = [], [], [], []
+        dice_cases, iou_cases = defaultdict(list), defaultdict(list)
+        bboxes_w_scores = []
+        n_slices = 0
 
-    timer = StageTimer(dev, sync=dev.type == "cuda")
-    t0 = time.time()
-    n_slices = 0
+        # group queries by part_assign so each support swap batches its chunk
+        chunks: dict[int, list[dict]] = defaultdict(list)
+        with profiling.span("eval.gather_queries") as gather:
+            skipped_support = skipped_no_organ = 0
+            for idx in range(len(te_dataset)):
+                s = te_dataset[idx]
+                if s["scan_id"] in support_scan_ids:
+                    skipped_support += 1  # reference :364 skips support scans
+                    continue
+                if cfg.skip_no_organ_slices and s["label"].max() < 1:
+                    skipped_no_organ += 1
+                    continue
+                chunks[int(s["part_assign"])].append(s)
+            gather.attrs.update(
+                kept=sum(len(c) for c in chunks.values()),
+                skipped_support=skipped_support,
+                skipped_no_organ=skipped_no_organ)
 
-    # group queries by part_assign so each support swap batches its chunk
-    chunks: dict[int, list[dict]] = defaultdict(list)
-    for idx in range(len(te_dataset)):
-        s = te_dataset[idx]
-        if s["scan_id"] in support_scan_ids:
-            continue  # reference :364 skips support scans as queries
-        if cfg.skip_no_organ_slices and s["label"].max() < 1:
-            continue
-        chunks[int(s["part_assign"])].append(s)
+        for qpart in sorted(chunks):
+            samples = chunks[qpart]
+            with profiling.span("eval.to_device") as copy:
+                sup_img = np.asarray(all_sup_imgs[qpart])
+                if sup_img.ndim == 3:
+                    sup_img = sup_img[None]
+                sup_msk = np.asarray(all_sup_masks[qpart])
+                if sup_msk.ndim == 2:
+                    sup_msk = sup_msk[None]
+                stacked = np.stack([s["image"] for s in samples])
+                copy.attrs["bytes"] = (stacked.nbytes + sup_img.nbytes
+                                       + sup_msk.nbytes)
+                queries = torch.from_numpy(stacked).to(dev)
+                inp = ALPNetInput(torch.from_numpy(sup_img).to(dev),
+                                  torch.from_numpy(sup_msk).to(dev),
+                                  queries[:1], isval=True,
+                                  val_wsize=cfg.val_wsize)
 
-    for qpart in sorted(chunks):
-        samples = chunks[qpart]
-        sup_img = np.asarray(all_sup_imgs[qpart])
-        if sup_img.ndim == 3:
-            sup_img = sup_img[None]
-        sup_msk = np.asarray(all_sup_masks[qpart])
-        if sup_msk.ndim == 2:
-            sup_msk = sup_msk[None]
-        queries = torch.from_numpy(
-            np.stack([s["image"] for s in samples])).to(dev)
-        inp = ALPNetInput(torch.from_numpy(sup_img).to(dev),
-                          torch.from_numpy(sup_msk).to(dev), queries[:1],
-                          isval=True, val_wsize=cfg.val_wsize)
-
-        if mode == "volume":
-            with timer.stage("volume_chunk"):
-                preds, _ = pipe.forward_volume(
-                    queries, inp, slice_batch=cfg.slice_batch)
+            # the masks' copy to the host ends the chunk's device work
+            with profiling.span("eval.segment", slices=len(samples)):
+                if mode == "volume":
+                    preds, _ = pipe.forward_volume(
+                        queries, inp, slice_batch=cfg.slice_batch)
+                else:
+                    preds = torch.stack(
+                        [pipe.forward(queries[i:i + 1], inp)[0]
+                         for i in range(len(samples))])
                 preds = preds.cpu().numpy()
-        else:
-            preds = torch.stack([pipe.forward(queries[i:i + 1], inp)[0]
-                                 for i in range(len(samples))])
-            preds = preds.cpu().numpy()
 
-        for s, pred in zip(samples, preds):
-            m = dice_iou_precision_recall(pred, s["label"])
-            mean_dice.append(m["dice"])
-            mean_prec.append(m["precision"])
-            mean_rec.append(m["recall"])
-            mean_iou.append(m["iou"])
-            dice_cases[s["case"]].append(m["dice"])
-            iou_cases[s["case"]].append(m["iou"])
-            bboxes_w_scores.append({
-                "pred_bbox": get_bounding_box(pred),
-                "gt_bbox": get_bounding_box(s["label"]),
-                "score": m["dice"]})
-            n_slices += 1
+            with profiling.span("eval.score"):
+                for s, pred in zip(samples, preds):
+                    m = dice_iou_precision_recall(pred, s["label"])
+                    mean_dice.append(m["dice"])
+                    mean_prec.append(m["precision"])
+                    mean_rec.append(m["recall"])
+                    mean_iou.append(m["iou"])
+                    dice_cases[s["case"]].append(m["dice"])
+                    iou_cases[s["case"]].append(m["iou"])
+                    bboxes_w_scores.append({
+                        "pred_bbox": get_bounding_box(pred),
+                        "gt_bbox": get_bounding_box(s["label"]),
+                        "score": m["dice"]})
+                    n_slices += 1
 
-    elapsed = time.time() - t0
+        detection = None
+        if bboxes_w_scores:
+            with profiling.span("eval.detection"):
+                detection = eval_detection(bboxes_w_scores)
+        run.attrs["slices"] = n_slices
+
+    elapsed = run.duration_ns() / 1e9
     result = {
         "mar_val_batches_meanDice": float(np.mean(mean_dice)),
         "mar_val_batches_meanPrec": float(np.mean(mean_prec)),
@@ -226,10 +258,10 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
         "slices_per_sec": n_slices / elapsed if elapsed > 0 else 0.0,
     }
     if profile:
-        result["stage_timings"] = timer.as_dict()
-        log.info("stage timings:\n%s", timer.report())
-    if bboxes_w_scores:
-        result["detection_f1"] = eval_detection(bboxes_w_scores)
+        result["trace"] = profiling.summary(profiling.spans(within=run))
+        log.info("trace:\n%s", profiling.report(result["trace"]))
+    if detection is not None:
+        result["detection_f1"] = detection
     log.info("mar_val batches meanDice: %.4f (%d slices, %.1f slices/s)",
              result["mar_val_batches_meanDice"], n_slices,
              result["slices_per_sec"])

@@ -13,10 +13,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import gzip
+import os
 
 import numpy as np
 
 from protosam_tpu_torch.native import build
+from protosam_tpu_torch.utils import profiling
 
 calls = 0
 
@@ -60,21 +62,26 @@ def native_available() -> bool:
 
 
 def read_volume_native(path: str):
-    """-> (array (z, y, x) float32, spacing (sx, sy, sz))."""
+    """-> (array (z, y, x) float32, spacing (sx, sy, sz)).  One
+    ``data.decode`` span, which counts the file's bytes (``bytes_read``)
+    and the bytes decompressed (``bytes_decoded``)."""
     path = str(path)
     opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rb") as f:
-        raw = f.read()
-    dims = (_I64 * 3)()
-    spacing = (ctypes.c_float * 3)()
-    data = _FLOAT_P()
-    rc = _call("nf_parse_volume", raw, len(raw), dims, spacing,
-               ctypes.byref(data))
-    if rc != 0:
-        raise IOError(f"nf_parse_volume({path}) failed with code {rc}")
-    z, y, x = dims[0], dims[1], dims[2]
-    arr = np.ctypeslib.as_array(data, shape=(z, y, x)).copy()
-    _lib().nf_free(data)
+    with profiling.span("data.decode", file=os.path.basename(path)):
+        with opener(path, "rb") as f:
+            raw = f.read()
+        profiling.count("bytes_read", os.path.getsize(path))
+        profiling.count("bytes_decoded", len(raw))
+        dims = (_I64 * 3)()
+        spacing = (ctypes.c_float * 3)()
+        data = _FLOAT_P()
+        rc = _call("nf_parse_volume", raw, len(raw), dims, spacing,
+                   ctypes.byref(data))
+        if rc != 0:
+            raise IOError(f"nf_parse_volume({path}) failed with code {rc}")
+        z, y, x = dims[0], dims[1], dims[2]
+        arr = np.ctypeslib.as_array(data, shape=(z, y, x)).copy()
+        _lib().nf_free(data)
     return arr, tuple(spacing)
 
 

@@ -11,6 +11,11 @@ on the model's device, batched over slices, with no host round trip:
   -> SAM encoder -> decoder batched over slices × components
   -> component masks OR-ed, composed bilinear->nearest resize to the query.
 
+Traced (``utils/profiling.py``): ``forward_volume`` is a
+``pipeline.volume`` span over ``pipeline.support_encode`` and, per batch,
+``pipeline.coarse``, ``pipeline.prompts``, ``pipeline.sam_encoder`` and
+``pipeline.decode``; each records CUDA events when tracing is enabled.
+
 Flag semantics follow reference ProtoSAM.__init__:184-203 with the defaults
 of validation_protosam.py:220-232.
 """
@@ -25,6 +30,7 @@ import torch
 from protosam_tpu_torch.models.io_protocol import (ALPNetInput, BOTH_MODE,
                                                    POINT_MODES)
 from protosam_tpu_torch.models.sam.sam import preprocess as sam_preprocess
+from protosam_tpu_torch.ops import launch_counts
 from protosam_tpu_torch.ops.cca import (ComponentStats,
                                         component_confidences,
                                         connected_components)
@@ -34,6 +40,7 @@ from protosam_tpu_torch.ops.resize import (resize_bilinear,
                                            resize_nearest)
 from protosam_tpu_torch.ops.rotate import (reverse_tensor,
                                            rotate_tensor_no_crop)
+from protosam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +119,10 @@ class ProtoSAM:
                       val_wsize=2):
         """Coarse model + refinement for a batch of query slices
         (N, 3, H, W) -> (preds (N, H, W), scores (N, K))."""
-        logits = self.coarse_model(supp, fg, bg, qrys, isval, val_wsize,
-                                   supp_fts=supp_fts)["logits"]
+        with profiling.span("pipeline.coarse", device=qrys.device,
+                            batch=qrys.shape[0]):
+            logits = self.coarse_model(supp, fg, bg, qrys, isval, val_wsize,
+                                       supp_fts=supp_fts)["logits"]
         return self._refine_core(qrys, logits)
 
     @torch.no_grad()
@@ -143,11 +152,15 @@ class ProtoSAM:
                 pred = (stats.labels > 0) * pred
                 conf = torch.amax(c, dim=1)
             return pred.float(), conf[:, None]
-        ex = self._extract_prompts(qrys, logits)
-        emb = self.sam_model.encode_image(ex["sam_image"])
-        return self._decode_stage(
-            emb, ex["coords"], ex["labels"], ex["boxes"], ex["valid"],
-            ex["pred"], original_size, mask_inputs=ex["mask_inputs"])
+        dev, b = qrys.device, qrys.shape[0]
+        with profiling.span("pipeline.prompts", device=dev, batch=b):
+            ex = self._extract_prompts(qrys, logits)
+        with profiling.span("pipeline.sam_encoder", device=dev, batch=b):
+            emb = self.sam_model.encode_image(ex["sam_image"])
+        with profiling.span("pipeline.decode", device=dev, batch=b):
+            return self._decode_stage(
+                emb, ex["coords"], ex["labels"], ex["boxes"], ex["valid"],
+                ex["pred"], original_size, mask_inputs=ex["mask_inputs"])
 
     def _extract_prompts(self, qrys, logits):
         """Device-side prompt extraction for B slices: coarse logits ->
@@ -259,24 +272,34 @@ class ProtoSAM:
                        slice_batch: int = 8):
         """Segment a slice stack: queries (N, 3, H, W) -> (preds (N, H, W),
         scores (N, K)).  The support set is encoded once per volume; N is
-        padded to a multiple of ``slice_batch``."""
+        padded to a multiple of ``slice_batch``.  One ``pipeline.volume``
+        span, which counts the slices, the padded ones and the kernels'
+        launches (K1-K9, from each wrapper's ``launches``)."""
         inp = coarse_model_input
-        supp_fts = inp.supp_fts
-        if supp_fts is None:
-            with torch.no_grad():
-                supp_fts = self.coarse_model.get_features(inp.supp_imgs)
-        n = queries.shape[0]
+        dev, n = queries.device, queries.shape[0]
         pad = (-n) % slice_batch
-        if pad:
-            queries = torch.cat([queries, queries[-1:].expand(pad, -1, -1,
-                                                              -1)])
-        preds, scores = [], []
-        for i in range(0, queries.shape[0], slice_batch):
-            p, s = self._forward_core(
-                inp.supp_imgs, inp.fore_mask, inp.back_mask,
-                queries[i:i + slice_batch], supp_fts, True, inp.val_wsize)
-            preds.append(p)
-            scores.append(s)
+        with profiling.span("pipeline.volume", device=dev, slices=n,
+                            padded=pad) as vol:
+            before = launch_counts()
+            supp_fts = inp.supp_fts
+            if supp_fts is None:
+                with profiling.span("pipeline.support_encode", device=dev,
+                                    batch=inp.supp_imgs.shape[0]), \
+                        torch.no_grad():
+                    supp_fts = self.coarse_model.get_features(inp.supp_imgs)
+            if pad:
+                queries = torch.cat([queries, queries[-1:].expand(pad, -1, -1,
+                                                                  -1)])
+            preds, scores = [], []
+            for i in range(0, queries.shape[0], slice_batch):
+                p, s = self._forward_core(
+                    inp.supp_imgs, inp.fore_mask, inp.back_mask,
+                    queries[i:i + slice_batch], supp_fts, True, inp.val_wsize)
+                preds.append(p)
+                scores.append(s)
+            vol.attrs["launches"] = {
+                k: c - before[k] for k, c in launch_counts().items()
+                if c != before[k]}
         return torch.cat(preds)[:n], torch.cat(scores)[:n]
 
     def _mesh_pipeline(self, mesh, shard_params: bool) -> "ProtoSAM":

@@ -6,14 +6,19 @@ Builds a configuration (``flagship``: DINOv2-L/14 at 672 px + SAM ViT-B;
 W8A8 path, kernels K8 and K9, the JAX entry point's default; ``vit_h``: the eval configuration with SAM ViT-H and the fused ALP, MLP and
 projection routes, as ``chip_smoke.py`` phase 5 drives it;
 ``vit_h_unfused``: the same weights with the three routes off), runs
-``forward_volume`` once to warm up, then once more with the five stage
-methods of ``pipeline/protosam.py`` wrapped in the ``StageTimer`` (each
-stage begins and ends with ``torch.cuda.synchronize``): the DINOv2
-features (``FewShotSeg.get_features``), the ALP score
-(``FewShotSeg.score``), ``_extract_prompts``, ``encode_image`` and
-``_decode_stage``.  Then it times the whole ``forward_volume`` unwrapped,
-host clock ending in a synchronize.  Inputs are smooth synthetic 672²
-slices and a seeded support episode (``utils/synthetic.py``).
+``forward_volume`` once to warm up, then once more with tracing enabled
+(``utils/profiling.enable``) and reports the program's own spans of that
+volume (``stage_trace``): the five stages, ``pipeline.support_encode``
+(DINOv2 on the support), ``pipeline.coarse`` (DINOv2 features and the ALP
+score of a batch), ``pipeline.prompts`` (``_extract_prompts``),
+``pipeline.sam_encoder`` (``encode_image``) and ``pipeline.decode``
+(``_decode_stage``), each with its host ms and its device ms from CUDA
+events on the stream (nothing synchronizes between stages), and the
+counts on the volume's span (``volume_counts``): the slices, the padded
+ones and each kernel's launches a slice (K1-K9).  Then it
+times the whole ``forward_volume`` with tracing off, host clock ending in
+a synchronize.  Inputs are smooth synthetic 672² slices and a seeded
+support episode (``utils/synthetic.py``).
 
     python3 -m protosam_tpu_torch.tools.pipeline_profile
         [--config flagship|flagship_int8|vit_h|vit_h_unfused]
@@ -30,7 +35,7 @@ import time
 import torch
 
 from protosam_tpu_torch.tools.timing import log, require_cuda
-from protosam_tpu_torch.utils.profiling import StageTimer
+from protosam_tpu_torch.utils import profiling
 from protosam_tpu_torch.utils.synthetic import (smooth_volume,
                                                 synthetic_episode)
 
@@ -63,20 +68,30 @@ def volume_inputs(n_slices: int, device, seed: int = 6):
             synthetic_episode(IMAGE_SIZE, device, seed + 1))
 
 
-def stage_methods(pipe) -> dict:
-    """Stage name -> (object, method name) for the five stages."""
-    return {"DINOv2 get_features": (pipe.coarse_model, "get_features"),
-            "ALP score": (pipe.coarse_model, "score"),
-            "_extract_prompts": (pipe, "_extract_prompts"),
-            "SAM encode_image": (pipe.sam_model, "encode_image"),
-            "_decode_stage": (pipe, "_decode_stage")}
+def stage_trace(pipe, vol, inp, slice_batch: int) -> dict:
+    """One ``forward_volume`` with tracing enabled: ``profiling.summary``
+    of its spans (``pipeline.volume`` and the five stages)."""
+    was = profiling.enabled()
+    profiling.enable()
+    try:
+        pipe.forward_volume(vol, inp, slice_batch=slice_batch)
+    finally:
+        profiling.enable(was)
+    volume = next(s for s in reversed(profiling.spans())
+                  if s.name == "pipeline.volume")
+    return profiling.summary(profiling.spans(within=volume))
 
 
-def _timed(timer: StageTimer, name: str, fn):
-    def wrapped(*args, **kwargs):
-        with timer.stage(name):
-            return fn(*args, **kwargs)
-    return wrapped
+def volume_counts(stages: dict) -> dict:
+    """From ``stage_trace``'s table: the volume's ``slices``, its
+    ``padded`` slices and ``launches_per_slice`` of each kernel that
+    launched (none on the CPU)."""
+    counts = stages["pipeline.volume"]["counts"]
+    n = counts["slices"]
+    return {"slices": n, "padded": counts["padded"],
+            "launches_per_slice": {
+                k.split(".", 1)[1]: v / n for k, v in counts.items()
+                if k.startswith("launches.")}}
 
 
 def run(config: str = "flagship", slice_batch: int = 4, n_slices: int = 8,
@@ -91,21 +106,15 @@ def run(config: str = "flagship", slice_batch: int = 4, n_slices: int = 8,
     pipe.forward_volume(vol, inp, slice_batch=slice_batch)  # warm-up
     torch.cuda.synchronize()
 
-    timer = StageTimer(dev)
-    methods = stage_methods(pipe)
-    for name, (obj, attr) in methods.items():
-        setattr(obj, attr, _timed(timer, name, getattr(obj, attr)))
-    t0 = time.perf_counter()
-    try:
-        pipe.forward_volume(vol, inp, slice_batch=slice_batch)
-        torch.cuda.synchronize()
-    finally:
-        for obj, attr in methods.values():
-            delattr(obj, attr)  # back to the class's method
-    staged = (time.perf_counter() - t0) * 1e3
+    stages = stage_trace(pipe, vol, inp, slice_batch)
     log(f"pipeline_profile {config}, {n_slices} slices at slice_batch "
-        f"{slice_batch}, stages synchronized: forward_volume {staged:.1f} "
-        f"ms, of which\n{timer.report()}")
+        f"{slice_batch}, traced: forward_volume "
+        f"{stages['pipeline.volume']['total_ms']:.1f} ms host, of which\n"
+        f"{profiling.report(stages)}")
+    vc = volume_counts(stages)
+    log(f"pipeline_profile {config}: {vc['slices']} slices, {vc['padded']} "
+        f"padded; kernel launches a slice "
+        f"{ {k: round(v, 3) for k, v in vc['launches_per_slice'].items()} }")
 
     walls = []
     for _ in range(runs):
@@ -113,11 +122,10 @@ def run(config: str = "flagship", slice_batch: int = 4, n_slices: int = 8,
         pipe.forward_volume(vol, inp, slice_batch=slice_batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / n_slices * 1e3)
-    log(f"pipeline_profile {config}: forward_volume unwrapped "
+    log(f"pipeline_profile {config}: forward_volume untraced "
         f"{statistics.median(walls):.2f} ms/slice median of {runs} "
         f"(runs {[round(w, 2) for w in walls]})")
-    return {"stages": timer.as_dict(), "staged_ms": staged,
-            "ms_per_slice": walls}
+    return {"stages": stages, "volume": vc, "ms_per_slice": walls}
 
 
 def main(argv: list[str] | None = None) -> dict:

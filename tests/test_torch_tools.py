@@ -7,7 +7,7 @@ shape) and to the port on the CPU, where each kernel wrapper takes its
 plain version: row 13 (``bench_fc2.pallas_fc2``) and row 14
 (``microbench_attn``'s v0-v3) of the kernel table.  ``tools/`` has no
 ``__init__.py``, so its modules are loaded by file path.  The rest checks
-the roofline's counts, the stage timer, the trace summary and the
+the roofline's counts, the stage trace, the trace summary and the
 instrumentation here, and that every tool refuses to run without a card.
 Tests marked ``cuda`` run the kernels at the tools' geometries on the card.
 """
@@ -18,7 +18,6 @@ import importlib.util
 import pathlib
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -40,7 +39,7 @@ from protosam_tpu_torch.tools import (bench_attn, bench_cca, bench_fc2,
                                       microbench_attn, pipeline_profile,
                                       ptxas_report, roofline, stamp_int8,
                                       trace_volume)
-from protosam_tpu_torch.utils.profiling import StageTimer
+from protosam_tpu_torch.utils import profiling
 from protosam_tpu_torch.utils.synthetic import (smooth_volume,
                                                 synthetic_episode)
 
@@ -357,27 +356,6 @@ def test_chip_smoke_refuses_without_cuda(no_cuda):
     assert "CUDA is not available" in out.stderr
 
 
-def test_stage_timer_needs_a_card_to_sync(no_cuda):
-    with pytest.raises(RuntimeError, match="CUDA"):
-        StageTimer()
-
-
-def test_stage_timer_accounting():
-    timer = StageTimer(device="cpu", sync=False)
-    for _ in range(3):
-        with timer.stage("a"):
-            time.sleep(0.002)
-    with pytest.raises(ValueError):
-        with timer.stage("b"):
-            raise ValueError  # a failed stage is still charged
-    d = timer.as_dict()
-    assert d["a"]["calls"] == 3 and d["b"]["calls"] == 1
-    assert d["a"]["total_s"] >= 0.006
-    lines = timer.report().splitlines()
-    assert lines[0].startswith("a: ") and "x3" in lines[0]
-    assert lines[1].startswith("b: ")
-
-
 def test_trace_summary_busy_idle_and_top_kernels():
     ev = [
         {"ph": "X", "cat": "user_annotation", "name": "forward_volume",
@@ -432,29 +410,36 @@ ptxas info    : Used 32 registers, used 0 barriers, 352 bytes cmem[0]
 
 
 def test_pipeline_profile_instruments_the_five_stages():
-    """The stage wrappers see every stage of a tiny ``forward_volume`` on
-    the CPU, leave its result unchanged and are removed afterwards."""
+    """``stage_trace`` reports the program's spans of every stage of a tiny
+    ``forward_volume`` on the CPU, leaves its result unchanged and leaves
+    tracing as it found it."""
     pipe = build_pipeline("cpu", sam_ver="vit_t", coarse="dinov2_t14",
                           image_size=126, sam_size=256, dtype=torch.float32,
                           seed=3, config=ProtoSAMConfig(image_size=(256, 256),
                                                         max_ccs=4))
     vol, inp = smooth_volume(4, 126, seed=4), synthetic_episode(126, "cpu", 5)
     want = pipe.forward_volume(vol, inp, slice_batch=2)
-    timer = StageTimer(device="cpu", sync=False)
-    methods = pipeline_profile.stage_methods(pipe)
-    for name, (obj, attr) in methods.items():
-        setattr(obj, attr, pipeline_profile._timed(timer, name,
-                                                   getattr(obj, attr)))
-    got = pipe.forward_volume(vol, inp, slice_batch=2)
-    for obj, attr in methods.values():
-        delattr(obj, attr)
-    counts = {k: v["calls"] for k, v in timer.as_dict().items()}
-    # support features once, query features and the rest once per batch
-    assert counts == {"DINOv2 get_features": 3, "ALP score": 2,
-                      "_extract_prompts": 2, "SAM encode_image": 2,
-                      "_decode_stage": 2}
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert all(attr not in vars(obj) for obj, attr in methods.values())
+    got, orig = [], pipe.forward_volume
+    pipe.forward_volume = lambda *a, **kw: got.append(orig(*a, **kw))
+    try:
+        stages = pipeline_profile.stage_trace(pipe, vol, inp, slice_batch=2)
+    finally:
+        del pipe.forward_volume
+    counts = {k: v["count"] for k, v in stages.items()}
+    # support features once, the rest once per batch
+    assert counts == {"pipeline.volume": 1, "pipeline.support_encode": 1,
+                      "pipeline.coarse": 2, "pipeline.prompts": 2,
+                      "pipeline.sam_encoder": 2, "pipeline.decode": 2}
+    volume = stages.pop("pipeline.volume")
+    assert sum(v["total_ms"] for v in stages.values()) == pytest.approx(
+        volume["total_ms"] - volume["self_ms"])
+    # on the CPU no stage records device time
+    assert not any("device_ms" in v for v in stages.values())
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+    assert not profiling.enabled()
+    # 4 slices in batches of 2: none padded; no kernel launches on the CPU
+    assert pipeline_profile.volume_counts({"pipeline.volume": volume}) == {
+        "slices": 4, "padded": 0, "launches_per_slice": {}}
 
 
 # ------------------------------------------------------------ on the card
