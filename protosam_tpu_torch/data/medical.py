@@ -18,22 +18,35 @@ paths.  ``use_clahe`` applies CLAHE (clip 2.0, 7 x 7 tiles;
 ``data/clahe.py``, cv2's bits) to each raw slice cast to uint8 by numpy, as
 JAX does.
 
-Loading is traced (``utils/profiling.py``) per scan: ``data.read_header``
-(``read_nii`` of the image), ``data.decode`` (a file's bytes to voxels:
-the native feeder's reads, the numpy path's label read),
-``data.preprocess`` (resize + normalize), ``data.labels`` (the labels'
-resize) and ``data.index`` (the slice records; once more for the class
-files); ``read_nii`` and the feeder count ``bytes_read`` (compressed) and
-``bytes_decoded`` on the spans open around them.
+The fold loads as one task a scan, each on a thread of a pool of
+min(scans, the CPUs this process may use) (a one-scan fold inline): the
+image's decode, its preprocess, the label's decode and its resize.  Each
+file is decompressed once: on the native path the image's metadata
+(``info_by_scan``: spacing, origin, direction, no voxels) comes from the
+bytes the feeder inflated, and CT's normalisation, which takes every
+image first, hands each decoded image on to its scan's task.  zlib,
+numpy and the native library release the interpreter, so the scans
+overlap.  The slice records are built here after the tasks, in scan
+order, so the dataset is the serial load's.
+
+Loading is traced (``utils/profiling.py``) per scan: ``data.decode`` (a
+file's bytes to voxels), ``data.preprocess`` (resize + normalize),
+``data.labels`` (the labels' resize), each under the span open where the
+load began, and ``data.index`` (the slice records; once more for the
+class files); ``read_nii`` and the feeder count ``bytes_read``
+(compressed), ``bytes_decoded`` and ``files``, which reach the spans open
+around the load once its tasks are back.  ``load_workers`` is the pool's
+size.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
 import re
-from dataclasses import dataclass
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 
 import numpy as np
@@ -58,7 +71,7 @@ def _resize_slices(vol: np.ndarray, size: int, mode: str) -> np.ndarray:
     return resize_nearest(vol, size, channels_last=True)
 
 
-@dataclass
+@dataclasses.dataclass
 class SliceRecord:
     img: np.ndarray      # (H, W, 1) normalized
     lb: np.ndarray       # (H, W, 1)
@@ -104,14 +117,10 @@ class MedicalVolumeDataset:
         self.potential_support_sid = self.scan_ids[-self.nsup:]
         self.pid_curr_load = self.scan_ids
 
-        if extern_normalize_func is not None:
-            self.norm_func = extern_normalize_func
-        else:
-            vols = None
-            if self.img_modality == "CT":
-                vols = [read_nii(f"{base_dir}/image_{pid}.nii.gz")
-                        for pid in self.scan_ids]
-            self.norm_func = get_normalize_op(self.img_modality, vols)
+        # CT's statistics take every image: ``_read_dataset`` sets them
+        self.norm_func = extern_normalize_func
+        if self.norm_func is None and self.img_modality == "MR":
+            self.norm_func = get_normalize_op("MR")
 
         self.actual_dataset: list[SliceRecord] = []
         self.scan_z_idx: dict[str, list[int]] = {}
@@ -126,38 +135,21 @@ class MedicalVolumeDataset:
     def _read_dataset(self):
         use_native = (self.img_modality == "MR" and not self.use_clahe
                       and native.native_available())
+        scans = list(self.pid_curr_load)
+        parent = profiling.current()
+        self.load_workers = min(len(scans), len(os.sched_getaffinity(0)))
+        images = [None] * len(scans)
+        if self.norm_func is None:
+            images = self._in_parallel(
+                lambda sid: self._decode_image(sid, parent), scans)
+            self.norm_func = get_normalize_op(
+                self.img_modality, [im.array for im in images])
+        loaded = self._in_parallel(
+            lambda item: self._load_scan(*item, use_native, parent),
+            list(zip(scans, images)))
         glb_idx = 0
-        for scan_id in self.pid_curr_load:
-            with profiling.span("data.read_header", scan=scan_id):
-                img_meta = read_nii(
-                    f"{self.base_dir}/image_{scan_id}.nii.gz",
-                    peel_info=False)
-            self.info_by_scan[scan_id] = img_meta
-            if use_native:
-                # C++ single-pass read+resize+normalize (hot ingest path)
-                vol, _ = native.read_volume_native(
-                    f"{self.base_dir}/image_{scan_id}.nii.gz")
-                with profiling.span("data.preprocess", scan=scan_id):
-                    img = native.preprocess_volume_native(
-                        vol, self.image_size, "MR").transpose(1, 2, 0)
-                lbv, _ = native.read_volume_native(
-                    f"{self.base_dir}/label_{scan_id}.nii.gz")
-                with profiling.span("data.labels", scan=scan_id):
-                    lb = _resize_slices(lbv.transpose(1, 2, 0),
-                                        self.image_size, "nearest")
-            else:
-                with profiling.span("data.preprocess", scan=scan_id):
-                    img = img_meta.array
-                    if self.use_clahe:
-                        img = clahe(img.astype(np.uint8), 2.0)
-                    img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
-                    img = _resize_slices(np.float32(img), self.image_size,
-                                         "bilinear")
-                with profiling.span("data.decode", scan=scan_id):
-                    lb = read_nii(f"{self.base_dir}/label_{scan_id}.nii.gz")
-                with profiling.span("data.labels", scan=scan_id):
-                    lb = _resize_slices(np.float32(lb.transpose(1, 2, 0)),
-                                        self.image_size, "nearest")
+        for scan_id, (info, img, lb) in zip(scans, loaded):
+            self.info_by_scan[scan_id] = info
             with profiling.span("data.index", scan=scan_id):
                 nframe = img.shape[-1]
                 self.scan_z_idx[scan_id] = [-1] * nframe
@@ -170,6 +162,65 @@ class MedicalVolumeDataset:
                     self.scan_z_idx[scan_id][ii] = glb_idx
                     glb_idx += 1
         self.size = len(self.actual_dataset)
+
+    def _in_parallel(self, fn, items: list) -> list:
+        """``[fn(item) for item in items]``, one task an item on
+        ``load_workers`` threads (inline for one).  The counts the tasks
+        make on their threads are added to the spans open here once they
+        are all back."""
+        if self.load_workers <= 1:
+            return [fn(item) for item in items]
+
+        def task(item):
+            with profiling.tally() as counts:
+                return fn(item), counts
+
+        with ThreadPoolExecutor(self.load_workers) as pool:
+            done = list(pool.map(task, items))
+        for _, counts in done:
+            for key, n in counts.items():
+                profiling.count(key, n)
+        return [out for out, _ in done]
+
+    def _decode_image(self, scan_id: str, parent):
+        with profiling.span("data.decode", parent=parent, scan=scan_id):
+            return read_nii(f"{self.base_dir}/image_{scan_id}.nii.gz",
+                            peel_info=False)
+
+    def _load_scan(self, scan_id: str, image, use_native: bool, parent):
+        """One scan -> (its metadata without voxels, the image stack
+        (H, W, Z) normalized, the label stack (H, W, Z)); ``image`` is its
+        decoded image where the caller has it."""
+        label_path = f"{self.base_dir}/label_{scan_id}.nii.gz"
+        if use_native:
+            # C++ single-pass read+resize+normalize (hot ingest path)
+            vol, _, info = native.read_volume_native(
+                f"{self.base_dir}/image_{scan_id}.nii.gz", info=True,
+                parent=parent)
+            with profiling.span("data.preprocess", parent=parent,
+                                scan=scan_id):
+                img = native.preprocess_volume_native(
+                    vol, self.image_size, "MR").transpose(1, 2, 0)
+            lbv, _ = native.read_volume_native(label_path, parent=parent)
+            with profiling.span("data.labels", parent=parent, scan=scan_id):
+                lb = _resize_slices(lbv.transpose(1, 2, 0), self.image_size,
+                                    "nearest")
+            return info, img, lb
+        if image is None:
+            image = self._decode_image(scan_id, parent)
+        with profiling.span("data.preprocess", parent=parent, scan=scan_id):
+            img = image.array
+            if self.use_clahe:
+                img = clahe(img.astype(np.uint8), 2.0)
+            img = self.norm_func(np.float32(img.transpose(1, 2, 0)))
+            img = _resize_slices(np.float32(img), self.image_size,
+                                 "bilinear")
+        with profiling.span("data.decode", parent=parent, scan=scan_id):
+            lb = read_nii(label_path)
+        with profiling.span("data.labels", parent=parent, scan=scan_id):
+            lb = _resize_slices(np.float32(lb.transpose(1, 2, 0)),
+                                self.image_size, "nearest")
+        return dataclasses.replace(image, array=None), img, lb
 
     def _read_classfiles(self):
         with open(os.path.join(self.base_dir,

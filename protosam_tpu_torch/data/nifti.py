@@ -13,8 +13,10 @@ indexing in the datasets behaves identically to the reference.
 
 A copy of ``protosam_tpu/data/nifti.py`` (numpy, gzip and struct only), so
 that this package needs no JAX.  ``read_nii`` counts the file's bytes
-(``bytes_read``) and the bytes it decompressed (``bytes_decoded``) on the
-spans open around it (``utils/profiling.count``).
+(``bytes_read``), the bytes it decompressed (``bytes_decoded``) and the
+file (``files``) on the spans open around it (``utils/profiling.count``).
+``header_info`` gives a file's metadata from its first ``HEADER_BYTES``
+decompressed, for a reader that inflated them already.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ _CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 class NiftiImage:
     """Volume + the metadata subset the pipeline round-trips."""
 
-    array: np.ndarray          # (z, y, x) [SimpleITK convention]
+    array: np.ndarray | None   # (z, y, x) [SimpleITK convention]; None
+    #                            for the header's metadata alone
     spacing: tuple             # (sx, sy, sz) voxel size in mm
     origin: tuple = (0.0, 0.0, 0.0)
     direction: tuple = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
@@ -58,48 +61,39 @@ def _open(path: str | Path, mode: str = "rb"):
     return open(path, mode)
 
 
-def read_nii(path: str | Path, peel_info: bool = True):
-    """Read a .nii / .nii.gz volume.
+HEADER_BYTES = 352   # the 348-byte header and the extension flag
 
-    Returns ndarray (z, y, x) if peel_info else NiftiImage — mirroring
-    reference niftiio.read_nii_bysitk's peel_info flag (niftiio.py:10-25).
-    """
-    with _open(path) as f:
-        hdr = f.read(352)
-        sizeof_hdr = struct.unpack("<i", hdr[0:4])[0]
-        if sizeof_hdr != 348:
-            raise ValueError(f"not a NIfTI-1 file (sizeof_hdr={sizeof_hdr}): "
-                             f"{path}")
-        dim = struct.unpack("<8h", hdr[40:56])
-        ndim = dim[0]
-        shape_xyz = dim[1:1 + max(ndim, 3)]
-        datatype = struct.unpack("<h", hdr[70:72])[0]
-        pixdim = struct.unpack("<8f", hdr[76:108])
-        vox_offset = int(struct.unpack("<f", hdr[108:112])[0])
-        scl_slope = struct.unpack("<f", hdr[112:116])[0]
-        scl_inter = struct.unpack("<f", hdr[116:120])[0]
-        qoffset = struct.unpack("<3f", hdr[268:280])
-        srow = struct.unpack("<12f", hdr[280:328])
 
-        if datatype not in _DTYPES:
-            raise ValueError(f"unsupported NIfTI datatype {datatype}")
-        dtype = np.dtype(_DTYPES[datatype])
+@dataclasses.dataclass
+class _Layout:
+    """Where a file's voxels lie and how they scale."""
 
-        f.seek(vox_offset)
-        count = int(np.prod(shape_xyz[:3]))
-        raw = f.read(count * dtype.itemsize)
-        data = np.frombuffer(raw, dtype=dtype, count=count)
-    profiling.count("bytes_read", os.path.getsize(path))
-    profiling.count("bytes_decoded", vox_offset + len(raw))
+    shape_xyz: tuple
+    dtype: np.dtype
+    vox_offset: int
+    scl_slope: float
+    scl_inter: float
 
-    # on-disk is Fortran-order (x fastest); expose as (z, y, x)
-    arr = data.reshape(shape_xyz[:3][::-1])
-    if scl_slope not in (0.0, 1.0) or scl_inter != 0.0:
-        slope = scl_slope if scl_slope != 0.0 else 1.0
-        arr = arr.astype(np.float32) * slope + scl_inter
 
-    if peel_info:
-        return np.ascontiguousarray(arr)
+def _parse_header(hdr: bytes, path) -> tuple[_Layout, NiftiImage]:
+    """The first ``HEADER_BYTES`` of a NIfTI-1 file -> (its voxels'
+    layout, its metadata as a ``NiftiImage`` whose ``array`` is None)."""
+    sizeof_hdr = struct.unpack("<i", hdr[0:4])[0]
+    if sizeof_hdr != 348:
+        raise ValueError(f"not a NIfTI-1 file (sizeof_hdr={sizeof_hdr}): "
+                         f"{path}")
+    dim = struct.unpack("<8h", hdr[40:56])
+    ndim = dim[0]
+    shape_xyz = dim[1:1 + max(ndim, 3)]
+    datatype = struct.unpack("<h", hdr[70:72])[0]
+    pixdim = struct.unpack("<8f", hdr[76:108])
+    vox_offset = int(struct.unpack("<f", hdr[108:112])[0])
+    scl_slope = struct.unpack("<f", hdr[112:116])[0]
+    scl_inter = struct.unpack("<f", hdr[116:120])[0]
+    qoffset = struct.unpack("<3f", hdr[268:280])
+    srow = struct.unpack("<12f", hdr[280:328])
+    if datatype not in _DTYPES:
+        raise ValueError(f"unsupported NIfTI datatype {datatype}")
 
     sr = np.asarray(srow).reshape(3, 4)
     rot = sr[:, :3]
@@ -109,12 +103,52 @@ def read_nii(path: str | Path, peel_info: bool = True):
         dirmat = np.where(sp[None, :] != 0, rot / sp[None, :], np.eye(3))
     if not np.isfinite(dirmat).all() or np.allclose(rot, 0):
         dirmat = np.eye(3)
-    return NiftiImage(
-        array=np.ascontiguousarray(arr),
+    info = NiftiImage(
+        array=None,
         spacing=tuple(float(s) for s in sp),
         origin=tuple(float(o) for o in qoffset),
         direction=tuple(float(d) for d in dirmat.reshape(-1)),
     )
+    return _Layout(shape_xyz, np.dtype(_DTYPES[datatype]), vox_offset,
+                   scl_slope, scl_inter), info
+
+
+def header_info(hdr: bytes, path="") -> NiftiImage:
+    """The metadata ``read_nii(..., peel_info=False)`` gives, from the
+    first ``HEADER_BYTES`` of the file's (decompressed) bytes, as a
+    ``NiftiImage`` whose ``array`` is None: what ``write_nii``'s ``ref``
+    reads, without the voxels."""
+    return _parse_header(hdr, path)[1]
+
+
+def read_nii(path: str | Path, peel_info: bool = True):
+    """Read a .nii / .nii.gz volume.
+
+    Returns ndarray (z, y, x) if peel_info else NiftiImage — mirroring
+    reference niftiio.read_nii_bysitk's peel_info flag (niftiio.py:10-25).
+    """
+    with _open(path) as f:
+        layout, info = _parse_header(f.read(HEADER_BYTES), path)
+        dtype = layout.dtype
+        f.seek(layout.vox_offset)
+        count = int(np.prod(layout.shape_xyz[:3]))
+        raw = f.read(count * dtype.itemsize)
+        data = np.frombuffer(raw, dtype=dtype, count=count)
+    profiling.count("bytes_read", os.path.getsize(path))
+    profiling.count("bytes_decoded", layout.vox_offset + len(raw))
+    profiling.count("files", 1)
+
+    # on-disk is Fortran-order (x fastest); expose as (z, y, x)
+    arr = data.reshape(layout.shape_xyz[:3][::-1])
+    slope, inter = layout.scl_slope, layout.scl_inter
+    if slope not in (0.0, 1.0) or inter != 0.0:
+        arr = arr.astype(np.float32) * (slope if slope != 0.0 else 1.0) \
+            + inter
+
+    arr = np.ascontiguousarray(arr)
+    if peel_info:
+        return arr
+    return dataclasses.replace(info, array=arr)
 
 
 def write_nii(img: NiftiImage | np.ndarray, path: str | Path,

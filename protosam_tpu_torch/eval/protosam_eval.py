@@ -18,7 +18,8 @@ aggregate per case and overall.  Two modes:
 Either way a chunk's queries reach the device in one host-to-device copy
 and its masks come back in one copy, which is the one wait on the device.
 The call is one ``eval.run`` span (``utils/profiling.py``) over
-``eval.load_fold`` (the ``data.*`` spans), ``eval.support``,
+``eval.load_fold`` (the ``data.*`` spans, run on ``workers`` threads, and
+the ``files`` decompressed), ``eval.support``,
 ``eval.gather_queries``, then per chunk ``eval.to_device``,
 ``eval.segment`` (the ``pipeline.*`` spans, ended by the masks' copy) and
 ``eval.score``, and last ``eval.detection``; ``slices_per_sec`` is the
@@ -164,6 +165,7 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
             )
             te_dataset.set_curr_cls(resolve_test_class(cfg))
             load.attrs["scans"] = len(volumes.scan_z_idx)
+            load.attrs["workers"] = volumes.load_workers
 
         with profiling.span("eval.support"):
             sup = te_dataset.get_support_set(

@@ -5,7 +5,8 @@ The file is read here (``gzip`` for ``.nii.gz``) and its bytes are parsed
 by one C entry, ``nf_parse_volume``, so the library needs no zlib.  The
 library builds with g++ at first use (``native/build.py``); a build that
 fails raises.  ``calls`` counts the calls into the library, so a caller
-can show which ingest path ran.
+can show which ingest path ran.  The calls release the interpreter, so
+scans load in parallel on threads.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import ctypes
 import functools
 import gzip
 import os
+import threading
 
 import numpy as np
 
+from protosam_tpu_torch.data import nifti
 from protosam_tpu_torch.native import build
 from protosam_tpu_torch.utils import profiling
 
@@ -45,10 +48,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_calls_lock = threading.Lock()
+
+
 def _call(name: str, *args) -> int:
     global calls
     rc = getattr(_lib(), name)(*args)
-    calls += 1
+    with _calls_lock:
+        calls += 1
     return rc
 
 
@@ -61,17 +68,23 @@ def native_available() -> bool:
     return True
 
 
-def read_volume_native(path: str):
-    """-> (array (z, y, x) float32, spacing (sx, sy, sz)).  One
-    ``data.decode`` span, which counts the file's bytes (``bytes_read``)
-    and the bytes decompressed (``bytes_decoded``)."""
+def read_volume_native(path: str, info: bool = False, parent=None):
+    """-> (array (z, y, x) float32, spacing (sx, sy, sz)), and with
+    ``info`` the file's metadata as ``read_nii(..., peel_info=False)``
+    gives it, from the same decompressed bytes (``nifti.header_info``: a
+    ``NiftiImage`` whose ``array`` is None).  One ``data.decode`` span
+    (under ``parent`` where given), which counts the file's bytes
+    (``bytes_read``), the bytes decompressed (``bytes_decoded``) and the
+    file (``files``)."""
     path = str(path)
     opener = gzip.open if path.endswith(".gz") else open
-    with profiling.span("data.decode", file=os.path.basename(path)):
+    with profiling.span("data.decode", parent=parent,
+                        file=os.path.basename(path)):
         with opener(path, "rb") as f:
             raw = f.read()
         profiling.count("bytes_read", os.path.getsize(path))
         profiling.count("bytes_decoded", len(raw))
+        profiling.count("files", 1)
         dims = (_I64 * 3)()
         spacing = (ctypes.c_float * 3)()
         data = _FLOAT_P()
@@ -82,6 +95,9 @@ def read_volume_native(path: str):
         z, y, x = dims[0], dims[1], dims[2]
         arr = np.ctypeslib.as_array(data, shape=(z, y, x)).copy()
         _lib().nf_free(data)
+        if info:
+            return arr, tuple(spacing), nifti.header_info(
+                raw[:nifti.HEADER_BYTES], path)
     return arr, tuple(spacing)
 
 

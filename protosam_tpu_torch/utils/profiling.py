@@ -11,14 +11,21 @@ on the card.
   ``n`` to ``key`` on every span open on the thread, so a count made where
   the work happens (bytes a file decodes) also lands on the spans around
   it.
+* Work handed to another thread names its parent: ``span(name,
+  parent=s)`` takes ``s``'s id as its parent and ``s``'s request, whatever
+  the thread (``current()`` is the innermost span open on this one).
+  Counts stay on the thread that made them: ``tally()`` gathers a
+  thread's counts in a dict, which the code that handed the work out adds
+  to its own spans once the work is back.
 * Finished spans go into a ring of ``CAPACITY`` records, process-wide as
   a logger is: ``spans()`` returns them by start, ``dropped()`` counts
   those the ring overwrote, ``clear()`` empties it, and ``summary(spans)``
-  gives per name the count, total ms, self ms (less the part its child
-  spans cover), where recorded device ms, and the sums of the spans'
-  numeric attributes (``counts``).  Attributes are counts; identifiers
-  are given as strings.  ``spans(within=s)`` is
-  ``s`` and the spans under it.  Nothing is written to a file.
+  gives per name the count, total ms, self ms (less the time its child
+  spans cover, overlapping children counted once), where recorded device
+  ms, and the sums of the spans' numeric attributes (``counts``).
+  Attributes are counts; identifiers are given as strings.
+  ``spans(within=s)`` is ``s`` and the spans under it.  Nothing is written
+  to a file.
 * Host spans are always recorded, at a couple of µs a span: the record
   and its attributes are the only allocations, and there is no lock.
   With ``PROTOSAM_TRACE=1`` in the environment or after ``enable()``, a
@@ -27,7 +34,8 @@ on the card.
   ``summary()``.  Then, and whenever a ``torch.profiler`` session is
   active, every span also opens a ``torch.profiler.record_function``
   range named ``protosam.<layer>/<what>``, which puts the program's spans
-  on the device trace's clock.
+  on the device trace's clock (a session records the ranges of the
+  threads it profiles: ``profile_all_threads`` for the fold's load).
 * ``trace`` — ``torch.profiler`` with CPU and CUDA activities around a
   block, exported as a chrome trace.
 * ``annotate`` — a named range (``torch.profiler.record_function``) that
@@ -44,32 +52,40 @@ import threading
 import time
 
 import torch
+import torch.autograd.profiler
 
 CAPACITY = 65536
 
-_profiler_enabled = torch._C._autograd._profiler_enabled
+
+def _profiler_enabled() -> bool:
+    """Whether a ``torch.profiler`` session is active, on any thread (the
+    session records the ranges of the threads it profiles)."""
+    return torch.autograd.profiler._is_profiler_enabled
 
 
 class Span:
     """One span; also the ring's record of it once it has ended."""
 
     __slots__ = ("name", "id", "parent", "request", "start", "end", "attrs",
-                 "seq", "_rec", "_device", "_events", "_range")
+                 "seq", "_rec", "_device", "_events", "_range",
+                 "_given_parent")
 
-    def __init__(self, rec: "Recorder", name: str, device, attrs: dict):
+    def __init__(self, rec: "Recorder", name: str, device, attrs: dict,
+                 parent: "Span | None" = None):
         self._rec = rec
         self.name = name
         self._device = device
         self.attrs = attrs
         self._events = None
         self._range = None
+        self._given_parent = parent
 
     def __enter__(self) -> "Span":
         rec = self._rec
         stack = rec._stack()
         self.id = next(rec._ids)
-        if stack:
-            top = stack[-1]
+        top = self._given_parent or (stack[-1] if stack else None)
+        if top is not None:
             self.parent, self.request = top.id, top.request
         else:
             self.parent, self.request = 0, self.id
@@ -130,13 +146,38 @@ class Recorder:
             self._local.stack = []
             return self._local.stack
 
-    def span(self, name: str, device=None, **attrs) -> Span:
-        return Span(self, name, device, attrs)
+    def span(self, name: str, device=None, parent: Span | None = None,
+             **attrs) -> Span:
+        return Span(self, name, device, attrs, parent)
+
+    def current(self) -> Span | None:
+        """The innermost span open on this thread, or None."""
+        stack = self._stack()
+        return stack[-1] if stack else None
 
     def count(self, key: str, n: int) -> None:
-        """Add ``n`` to ``key`` on every span open on this thread."""
+        """Add ``n`` to ``key`` on every span open on this thread, and in
+        each of its open ``tally`` dicts."""
         for s in self._stack():
             s.attrs[key] = s.attrs.get(key, 0) + n
+        for t in getattr(self._local, "tallies", ()):
+            t[key] = t.get(key, 0) + n
+
+    @contextlib.contextmanager
+    def tally(self):
+        """A dict of the counts made on this thread inside the block, for
+        work run on a thread other than the one whose spans it counts
+        for."""
+        try:
+            tallies = self._local.tallies
+        except AttributeError:
+            tallies = self._local.tallies = []
+        t: dict = {}
+        tallies.append(t)
+        try:
+            yield t
+        finally:
+            tallies.pop()
 
     def spans(self, within: Span | None = None) -> list[Span]:
         """The ring's spans by start; with ``within``, that span and the
@@ -168,17 +209,30 @@ def _add_counts(into: dict, attrs: dict, prefix: str = "") -> None:
             into[prefix + k] = into.get(prefix + k, 0) + v
 
 
+def _union_ns(intervals: list[tuple[int, int]]) -> int:
+    """The time the (start, end) intervals cover, overlaps counted once."""
+    total, reach = 0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            total, reach = total + b - a, b
+        elif b > reach:
+            total, reach = total + b - reach, b
+    return total
+
+
 def summary(spans: list[Span]) -> dict[str, dict]:
     """Per span name: ``count``, ``total_ms``, ``self_ms`` (each span's
-    duration less its children's among ``spans``), where the spans
+    duration less the time its children among ``spans`` cover, children
+    that ran at once on other threads counted once), where the spans
     recorded CUDA events ``device_ms``, and where they carry numeric
     attributes ``counts`` (their sums, as ``{"slices": 88,
     "launches.K1": 960}``)."""
     ids = {s.id for s in spans}
-    child_ns: dict[int, int] = {}
+    children: dict[int, list] = {}
     for s in spans:
         if s.parent in ids:
-            child_ns[s.parent] = child_ns.get(s.parent, 0) + s.duration_ns()
+            children.setdefault(s.parent, []).append((s.start, s.end))
+    child_ns = {i: _union_ns(c) for i, c in children.items()}
     out: dict[str, dict] = {}
     for s in spans:
         row = out.setdefault(s.name, {"count": 0, "total_ms": 0.0,
@@ -215,7 +269,9 @@ def report(table: dict[str, dict]) -> str:
 _recorder = Recorder(enabled=os.environ.get("PROTOSAM_TRACE", "0")
                      not in ("", "0"))
 span = _recorder.span
+current = _recorder.current
 count = _recorder.count
+tally = _recorder.tally
 spans = _recorder.spans
 dropped = _recorder.dropped
 clear = _recorder.clear

@@ -9,6 +9,7 @@ and off."""
 import gzip
 import json
 import os
+import re
 
 import pytest
 import torch
@@ -254,27 +255,36 @@ def test_run_eval_spans_follow_the_driver(data_dir, pipe, monkeypatch,
 
     load = children[0]
     data = [s for s in tree if s.parent == load.id]
-    per_scan = (["data.read_header", "data.decode", "data.preprocess",
-                 "data.decode", "data.labels", "data.index"] if native
-                else ["data.read_header", "data.preprocess", "data.decode",
-                      "data.labels", "data.index"])
-    scans = sorted({s.attrs["scan"] for s in data if "scan" in s.attrs},
-                   key=int)
-    assert [s.name for s in data] == per_scan * len(scans) + ["data.index"]
+    # each scan's task: its image decoded, preprocessed, its label decoded
+    # and resized, in that order on one thread; then, back on this
+    # thread and in scan order, its slice records; last the class files
+    assert data[-1].name == "data.index" and "scan" not in data[-1].attrs
+    by_scan = {}
+    for s in data[:-1]:
+        sid = s.attrs.get("scan") or re.findall(r"\d+", s.attrs["file"])[-1]
+        by_scan.setdefault(sid, []).append(s.name)
+    scans = sorted(by_scan, key=int)
+    for names in by_scan.values():
+        assert names == ["data.decode", "data.preprocess", "data.decode",
+                         "data.labels", "data.index"]
+    index = [s for s in data[:-1] if s.name == "data.index"]
+    assert [s.attrs["scan"] for s in index] == scans
+    assert min(s.start for s in index) >= max(
+        s.end for s in data if s.name != "data.index")
     assert load.attrs["scans"] == len(scans) == 5
-    # the image is decompressed twice on the native path (its header read
-    # and the feeder), once on the numpy path; the labels once
-    want = sum((2 if native else 1) * _decoded_bytes(
-                   os.path.join(data_dir, f"image_{sid}.nii.gz"))
-               + _decoded_bytes(os.path.join(data_dir, f"label_{sid}.nii.gz"))
-               for sid in scans)
+    assert load.attrs["workers"] == min(5, len(os.sched_getaffinity(0)))
+    # every file is decompressed once, on either path, and the counts made
+    # on the pool's threads reach the load's span
+    want = sum(_decoded_bytes(os.path.join(data_dir, f"{kind}_{sid}.nii.gz"))
+               for sid in scans for kind in ("image", "label"))
     assert load.attrs["bytes_decoded"] == want
     assert load.attrs["bytes_read"] == sum(
-        (2 if native else 1) * os.path.getsize(
-            os.path.join(data_dir, f"image_{sid}.nii.gz"))
-        + os.path.getsize(os.path.join(data_dir, f"label_{sid}.nii.gz"))
-        for sid in scans)
+        os.path.getsize(os.path.join(data_dir, f"{kind}_{sid}.nii.gz"))
+        for sid in scans for kind in ("image", "label"))
+    assert load.attrs["files"] == 2 * len(scans)
     assert sum(s.attrs.get("bytes_decoded", 0) for s in data) == want
+    if native:  # the image's parse and preprocess, the label's parse
+        assert feeder.calls - native_calls == 3 * len(scans)
 
     n = result["n_slices"]
     gather = children[2]
@@ -328,19 +338,24 @@ def test_run_eval_span_leaves_out_building_the_pipeline(data_dir, pipe,
 def test_cpu_profiler_trace_holds_the_program_ranges(data_dir, pipe,
                                                      tmp_path):
     """With tracing off, a ``torch.profiler`` session alone opens the
-    program's ranges, named ``protosam.<layer>/<what>``."""
+    program's ranges, named ``protosam.<layer>/<what>``; one that profiles
+    every thread also holds the fold's load tasks' ranges."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     assert not profiling.enabled()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         protosam_eval.run_eval(_cfg(data_dir), pipe=pipe)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     names = {e.get("name", "") for e in
              json.loads(path.read_text())["traceEvents"]}
     for name in ("protosam.eval/run", "protosam.eval/load_fold",
-                 "protosam.eval/segment", "protosam.data/read_header",
-                 "protosam.data/decode", "protosam.pipeline/volume",
+                 "protosam.eval/segment", "protosam.data/preprocess",
+                 "protosam.data/decode", "protosam.data/labels",
+                 "protosam.data/index", "protosam.pipeline/volume",
                  "protosam.pipeline/coarse", "protosam.pipeline/decode"):
         assert name in names, name
     # outside the session no range is opened
