@@ -5,8 +5,10 @@ readings to the manifest's metrics.
 
 Everything a cell needs is found by name: the workload in
 ``BENCHMARK.json``, its configuration file, ``traffic/<traffic>.json``
-(whose ``driver`` picks ``drivers/<driver>.py``), ``limits/<workload>.json``
-and ``metrics/<metric>.py`` for every metric the cell reports.
+(whose ``driver`` picks ``drivers/<driver>.py``), ``limits/<workload>.json``,
+``families/<family>.py`` for each encoder of the configuration
+(``harness/family.py``) and ``metrics/<metric>.py`` for every metric the
+cell reports.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ import torch
 
 from benchmark.harness import checks, probe, traffic, weights
 from benchmark.harness import trace as tracing
-
-ROOT = pathlib.Path(__file__).resolve().parents[2]
+from benchmark.harness.family import ROOT
 # top-level module names whose presence after the window fails the run:
 # the JAX package and JAX itself (compared whole: the port's name begins
 # with the JAX package's)
@@ -46,6 +47,7 @@ class Measured:
     trace: tracing.Trace | None
     host_spans: list
     call_spans: list
+    root: pathlib.Path = ROOT
 
 
 def manifest(root: pathlib.Path = ROOT) -> dict:
@@ -109,10 +111,11 @@ def program_config(cfg: dict, variant: str | None):
                   log_dir="")
 
 
-def build(cfg: dict, seed: int, device, variant: str | None = None):
+def build(cfg: dict, seed: int, device, variant: str | None = None,
+          root: pathlib.Path = ROOT):
     from protosam_tpu_torch.eval.protosam_eval import build_models
 
-    wc, ws = weights.state_dicts(cfg, seed, device)
+    wc, ws = weights.state_dicts(cfg, seed, device, root)
     pipe = build_models(program_config(cfg, variant), device=device,
                         coarse_state=wc, sam_state=ws,
                         fused_mlp=cfg["pipeline"]["fused_mlp"],
@@ -150,7 +153,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, t0: float,
     work, cfg, mix, limits = cell_files(bench, name, root)
     device = torch.device(device or "cuda:0")
     on_card = device.type == "cuda"
-    held = {"pipe": build(cfg, seed, device, variant)}
+    held = {"pipe": build(cfg, seed, device, variant, root)}
     if hooks:
         hooks(held["pipe"])
     drv = traffic.driver(mix, root)(cfg, mix, seed, device)
@@ -180,7 +183,7 @@ def _measure(bench, work, cfg, mix, limits, held, drv, seed, seconds,
     summary = drv.summary()
     m = Measured(cfg, mix, setup_s, out["wall_s"], summary["calls"],
                  summary["slices"], summary, layer_ms, tr, host_spans,
-                 out.get("call_spans", []))
+                 out.get("call_spans", []), root)
     # free the program before the reference runs
     del pr, pipe
     drv.release()
@@ -188,7 +191,7 @@ def _measure(bench, work, cfg, mix, limits, held, drv, seed, seconds,
     if on_card:
         torch.cuda.empty_cache()
     c0 = time.perf_counter()
-    ref = checks.Reference(cfg, seed, device)
+    ref = checks.Reference(cfg, seed, device, root)
     readings = drv.readings(ref, out)
     lowref = drv.readings(ref, out, lower=True) if variant == "lowref" \
         else None

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.harness import weights
+from benchmark.harness import family, weights
 from benchmark.harness.synth import FOLD_NAMES
 from benchmark.reference import data as rdata
 from benchmark.reference import models
@@ -70,29 +70,26 @@ def _dice_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class Reference:
-    """The reference's weights of one seed (float32, on the device)."""
+    """The reference's weights of one seed (float32, on the device) and
+    the encoders' families (``harness/family.py``) of the configuration."""
 
-    def __init__(self, cfg: dict, seed: int, device):
+    def __init__(self, cfg: dict, seed: int, device, root=family.ROOT):
         self.cfg = cfg
-        wc, ws = weights.state_dicts(cfg, seed, device)
+        wc, self.sam = weights.state_dicts(cfg, seed, device, root)
         self.coarse = weights.strip(wc, "encoder.")
-        self.sam = ws
-        self.encoder = weights.strip(ws, "image_encoder.")
-        c, s = cfg["coarse"], cfg["sam"]
-        self.ccfg = {"input_size": c["input_size"], "dino_depth": c["depth"],
-                     "dino_heads": c["num_heads"],
-                     "proto_grid": c["proto_grid"]}
+        self.coarse_family = family.load(cfg["coarse"], root)
+        self.sam_family = family.load(cfg["sam"], root)
 
     def features(self, imgs):
-        return rp.coarse_features(self.coarse, imgs.float(), self.ccfg)
+        c = self.cfg["coarse"]
+        return rp.coarse_features(
+            lambda x: self.coarse_family.forward(self.coarse, x, c),
+            imgs.float(), c)
 
     def embedding(self, qrys):
         s = self.cfg["sam"]
-        x = rp.sam_input(qrys, s["image_size"])
-        return models.sam_image_embedding(
-            self.encoder, x, depth=s["depth"], heads=s["num_heads"],
-            global_blocks=s["global_attn_indexes"],
-            window=s["window_size"], patch=s["patch_size"])
+        return self.sam_family.forward(
+            self.sam, rp.sam_input(qrys, s["image_size"]), s)
 
 
 def _cat(batches, n):
@@ -134,9 +131,9 @@ def volume_readings(ref: Reference, queries, support, support_mask,
             gaps["embed_nsr"].append(_power(p_emb[sl], ref.embedding(q)))
             # ALP, from the program's features
             r_scores = rp.coarse_scores(p_fts[sl], p_sfts, support_mask,
-                                        ref.ccfg)
+                                        cfg["coarse"])
             c_scores = rp.coarse_scores(p_fts[sl], p_sfts, support_mask,
-                                        ref.ccfg, dtype=dt) if lower \
+                                        cfg["coarse"], dtype=dt) if lower \
                 else p_scores[sl]
             gaps["alp_gap"].append(_rel(c_scores, r_scores))
             # the prompts, from the program's coarse scores

@@ -1,6 +1,7 @@
 """Frozen copy of the analytic counts of the port's ``tools/roofline.py``
-(``dino_flops``, ``sam_flops``, ``kernel_cost``) and the published H100 SXM
-peaks: the yardstick the roofline and utilisation metrics divide by.
+(``kernel_cost``, ``dino_seq``; its ``dino_flops`` and ``sam_flops`` are
+the families' ``flops``, ``benchmark/families/``) and the published H100
+SXM peaks: the yardstick the roofline and utilisation metrics divide by.
 
 Peaks are NVIDIA's published figures for the H100 SXM (dense, no
 sparsity), which assume the full 700 W power limit: 989 TFLOP/s bf16 and
@@ -8,16 +9,16 @@ sparsity), which assume the full 700 W power limit: 989 TFLOP/s bf16 and
 3.35 TB/s of HBM.  Each run prints the card's own ``power.limit`` beside
 its numbers.
 
-``dino_flops`` / ``sam_flops`` count a slice's work per pipeline stage:
-dense GEMMs, and attention as QKᵀ + PV over the real keys (DINOv2: every
-padded query row against the real keys), plus SAM's rel-pos bias einsums.
-``kernel_cost(name, **shapes)`` gives a kernel's (flops, bytes, bound_ms,
-bound_by): bytes count each input read once and each output written once;
-the bound is the larger of the flops over the peak of the type they run in
-and the bytes over the HBM rate.
+``slice_flops`` sums a slice's model FLOP over the stages the encoders'
+families count.  ``kernel_cost(name, **shapes)`` gives a kernel's (flops,
+bytes, bound_ms, bound_by): bytes count each input read once and each
+output written once; the bound is the larger of the flops over the peak of
+the type they run in and the bytes over the HBM rate.
 """
 
 from __future__ import annotations
+
+from benchmark.harness import family
 
 PEAK_BF16 = 989e12   # FLOP/s, tensor cores, dense
 PEAK_INT8 = 1979e12  # OP/s, tensor cores, dense
@@ -25,71 +26,11 @@ PEAK_F32 = 67e12     # FLOP/s, CUDA cores
 HBM_BYTES_S = 3.35e12
 PEAKS_AT_W = 700
 
-SAM_CFG = {
-    # embed, depth, heads, n_global
-    "vit_b": (768, 12, 12, 4),
-    "vit_l": (1024, 24, 16, 4),
-    "vit_h": (1280, 32, 16, 4),
-}
-
-DINO_CFG = {
-    # embed, depth, heads, mlp_ratio
-    "dinov2_l14": (1024, 24, 16, 4),
-    "dinov2_b14": (768, 12, 12, 4),
-    "dinov2_t14": (192, 12, 3, 4),
-}
-
 
 def dino_seq(n_tokens: int) -> int:
     """Sequence length the port's DINOv2 runs: padded to a 128 multiple
     from 2048 tokens on (``models/dinov2/vit.py``)."""
     return n_tokens + ((-n_tokens) % 128 if n_tokens >= 2048 else 0)
-
-
-def dino_flops(name: str, image_size: int) -> dict[str, float]:
-    return dino_flops_at(*DINO_CFG[name], image_size)
-
-
-def dino_flops_at(c: int, depth: int, heads: int, mlp: int,
-                  image_size: int) -> dict[str, float]:
-    hd = c // heads
-    grid = image_size // 14
-    n_tokens = grid * grid + 1
-    s = dino_seq(n_tokens)
-    dense = 2 * s * (3 * c * c + c * c + 2 * mlp * c * c) * depth
-    attn = 2 * 2 * s * n_tokens * hd * heads * depth  # QKᵀ + PV, real keys
-    patch = 2 * grid * grid * (14 * 14 * 3) * c
-    return {"dinov2 dense gemms": dense + patch, "dinov2 attention": attn}
-
-
-def sam_flops(ver: str, image_size: int = 1024,
-              win: int = 14) -> dict[str, float]:
-    return sam_flops_at(*SAM_CFG[ver], image_size, win)
-
-
-def sam_flops_at(c: int, depth: int, heads: int, n_global: int,
-                 image_size: int = 1024, win: int = 14) -> dict[str, float]:
-    hd = c // heads
-    g = image_size // 16                       # 64 at 1024
-    s = g * g
-    dense = 2 * s * (3 * c * c + c * c + 2 * 4 * c * c) * depth
-    patch = 2 * s * (16 * 16 * 3) * c
-    neck = 2 * s * c * 256 + 2 * s * 256 * 256 * 9
-    # decode: prompt encoder + 2-layer two-way transformer + upscale,
-    # ~4 GF/slice at one component, counted as dense (as the JAX tool does)
-    decode = 4e9
-    # global layers: QKᵀ + PV over all s keys, and the bias einsums
-    # (every query against g rows and g columns of the rel-pos table)
-    glob = (2 * 2 * s * s * hd + 2 * s * hd * 2 * g) * heads * n_global
-    # windowed layers: ceil(g/win)^2 windows of win^2 tokens on the padded
-    # grid; the bias einsums run on the unpadded grid
-    nw = (-(-g // win)) ** 2
-    sw = win * win
-    wind = ((2 * 2 * sw * sw * hd * nw + 2 * s * hd * 2 * win) * heads
-            * (depth - n_global))
-    return {"sam dense gemms": dense + patch + neck + decode,
-            "sam global attn": glob,
-            "sam window attn": wind}
 
 
 # ------------------------------------------------------------ kernels
@@ -187,15 +128,9 @@ def kernel_cost(name: str, **shapes) -> tuple[float, float, float, str]:
     return float(flops), float(nbytes), max(t_ops, t_bytes) * 1e3, by
 
 
-
-
-def slice_flops(cfg: dict) -> tuple[float, float]:
+def slice_flops(cfg: dict, root=family.ROOT) -> tuple[float, float]:
     """(one coarse-encoder image, the SAM stages of one slice) in FLOP at
-    a configuration's sizes."""
+    a configuration's sizes, each the sum of its family's ``flops``."""
     c, s = cfg["coarse"], cfg["sam"]
-    dino = dino_flops_at(c["embed_dim"], c["depth"], c["num_heads"],
-                         c["mlp_ratio"], c["input_size"])
-    sam = sam_flops_at(s["embed_dim"], s["depth"], s["num_heads"],
-                       len(s["global_attn_indexes"]), s["image_size"],
-                       s["window_size"])
-    return sum(dino.values()), sum(sam.values())
+    return (sum(family.load(c, root).flops(c).values()),
+            sum(family.load(s, root).flops(s).values()))

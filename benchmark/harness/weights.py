@@ -3,9 +3,9 @@ role recipe the program's own tools use (LayerNorm weights and LayerScale
 gammas 1 + 0.02·N, biases 0, everything else 0.02·N; a plain N(0, 0.02²)
 fill would shrink every normalisation to about 0 and degenerate the
 masks).  One ``torch.randn`` call per model on a ``torch.Generator`` of the
-card fills a flat float32 buffer; each tensor of the published layout
-(``reference/layout.py``) is a view of it.  The same dicts go to the
-program's builder and to the reference."""
+card fills a flat float32 buffer; each tensor of the published layout (the
+encoder family's ``keys``, ``harness/family.py``) is a view of it.  The
+same dicts go to ``build_models`` and to the reference."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from benchmark.reference import layout
+from benchmark.harness import family
 
 
 def _draw(keys: list, seed: int, device) -> dict[str, torch.Tensor]:
@@ -35,26 +35,25 @@ def _draw(keys: list, seed: int, device) -> dict[str, torch.Tensor]:
     return out
 
 
-def coarse_keys(cfg: dict) -> list:
+def coarse_keys(cfg: dict, root=family.ROOT) -> list:
+    """The coarse model's layout: ALPNet holds its encoder as
+    ``encoder.``."""
     c = cfg["coarse"]
-    return layout.dinov2("encoder.", c["embed_dim"], c["depth"],
-                         c["pos_grid"], c["patch_size"], c["mlp_ratio"])
+    return family.load(c, root).keys(c, "encoder.")
 
 
-def sam_keys(cfg: dict) -> list:
+def sam_keys(cfg: dict, root=family.ROOT) -> list:
     s = cfg["sam"]
-    return layout.sam(s["embed_dim"], s["depth"], s["num_heads"],
-                      set(s["global_attn_indexes"]), s["image_size"],
-                      s["patch_size"], s["window_size"],
-                      s["prompt_embed_dim"])
+    return family.load(s, root).keys(s, "")
 
 
-def state_dicts(cfg: dict, seed: int, device) -> tuple[dict, dict]:
+def state_dicts(cfg: dict, seed: int, device,
+                root=family.ROOT) -> tuple[dict, dict]:
     """(coarse model state dict, SAM state dict) of ``seed``, float32 on
     ``device``; the two draws come from two generators so that neither
     model's weights depend on the other's size."""
-    return (_draw(coarse_keys(cfg), 2 * seed, device),
-            _draw(sam_keys(cfg), 2 * seed + 1, device))
+    return (_draw(coarse_keys(cfg, root), 2 * seed, device),
+            _draw(sam_keys(cfg, root), 2 * seed + 1, device))
 
 
 def strip(sd: dict, prefix: str) -> dict:

@@ -3,11 +3,12 @@ the least time the card could take for each launch in the traced tail,
 at that launch's shape (``roofline.kernel_cost``), summed, over the summed
 device time of those launches, in percent.  A launch's shape is the
 coarse encoder's at the batch of the ``get_features`` span that launched
-it; kernels are found by name."""
+it, its real tokens the encoder family's ``tokens``; kernels are found by
+name."""
 
 import re
 
-from benchmark.harness import roofline
+from benchmark.harness import family, roofline
 
 PATTERNS = ("packed_kernel",)
 SPAN = re.compile(r"bench\.coarse/get_features\[b=(\d+)\]")
@@ -17,7 +18,7 @@ def read(m):
     if m.mix["driver"] != "volumes" or m.trace is None:
         return None
     c = m.cfg["coarse"]
-    n_tokens = (c["input_size"] // c["patch_size"]) ** 2 + 1
+    n_tokens = family.load(c, m.root).tokens(c)
     bound = dur = 0.0
     for op in m.trace.ops:
         if op.cat != "kernel" or not any(p in op.name for p in PATTERNS):

@@ -9,6 +9,6 @@ from benchmark.harness import roofline
 def read(m):
     if m.mix["driver"] != "volumes" or m.window_s <= 0 or not m.slices:
         return None
-    dino, sam = roofline.slice_flops(m.cfg)
+    dino, sam = roofline.slice_flops(m.cfg, m.root)
     flops = m.slices * (dino + sam) + m.calls * dino
     return 100.0 * flops / (m.window_s * roofline.PEAK_BF16)

@@ -1,15 +1,16 @@
 """Plain float32 reference of the ProtoSAM slice pipeline around the two
-encoders (``models.py``), written from the ProtoSAM description
-(arXiv:2407.07042; its ``models/ProtoSAM.py``, ``models/alpmodule.py`` and
+encoders (``benchmark/families/``) and SAM's decoder (``models.py``),
+written from the ProtoSAM description (arXiv:2407.07042; its
+``models/ProtoSAM.py``, ``models/alpmodule.py`` and
 ``models/grid_proto_fewshot.py``) and the ``F.interpolate`` conventions it
 calls:
 
-* the coarse ALPNet head: DINOv2 patch features as a grid (bilinearly
-  upsampled to at least 32²), masks resized by legacy nearest, a background
-  score from local grid prototypes and a foreground score from grid plus
-  global prototypes, falling back to the global prototype when no pooled
-  cell of the training window clears 0.95, the 2-class map upsampled
-  bilinearly to the image;
+* the coarse ALPNet head: the encoder's patch features as a grid
+  (bilinearly upsampled to at least 32²), masks resized by legacy
+  nearest, a background score from local grid prototypes and a foreground
+  score from grid plus global prototypes, falling back to the global
+  prototype when no pooled cell of the training window clears 0.95, the
+  2-class map upsampled bilinearly to the image;
 * the prompts: the logits upsampled to the SAM frame, softmax, argmax,
   8-connected components (``scipy.ndimage.label``, raster order), the most
   confident component kept, its most confident pixel, its centroid and its
@@ -56,13 +57,15 @@ def nearest(x: torch.Tensor, size) -> torch.Tensor:
 # ------------------------------------------------------------------ coarse
 
 
-def coarse_features(w: dict, imgs: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """imgs (B, 3, H, W) -> (B, C, g, g) f32 patch features."""
-    side = cfg["input_size"] // 14 * 14
+def coarse_features(encode, imgs: torch.Tensor, cfg: dict) -> torch.Tensor:
+    """imgs (B, 3, H, W) -> (B, C, g, g) f32 patch features; ``encode``
+    is the coarse encoder's family forward (patch tokens (B, g², C)),
+    ``cfg`` the configuration's ``coarse`` section."""
+    patch = cfg["patch_size"]
+    side = cfg["input_size"] // patch * patch
     x = bilinear(imgs, (side, side))
-    tok = models.dinov2_patch_tokens(w, x, depth=cfg["dino_depth"],
-                                     heads=cfg["dino_heads"])
-    g = side // 14
+    tok = encode(x)
+    g = side // patch
     fts = tok.reshape(tok.shape[0], g, g, -1).permute(0, 3, 1, 2)
     if g < MIN_FEATURE:
         fts = bilinear(fts, (MIN_FEATURE, MIN_FEATURE))

@@ -1,6 +1,6 @@
-"""A test-size benchmark root: the harness's drivers and metrics with the
-tiny configuration, mixes and limits of ``tests/tiny``, run on the CPU
-with the program's plain kernels and SAM at a 256 frame."""
+"""A test-size benchmark root: the harness's drivers, metrics and model
+families with the tiny configuration, mixes and limits of ``tests/tiny``,
+run on the CPU with the program's plain kernels and SAM at a 256 frame."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ TINY = pathlib.Path(__file__).resolve().parent / "tiny"
 def make_root(tmp: pathlib.Path) -> pathlib.Path:
     root = tmp / "root"
     (root / "benchmark").mkdir(parents=True)
-    for sub in ("drivers", "metrics"):
+    for sub in ("drivers", "metrics", "families"):
         shutil.copytree(REPO / "benchmark" / sub, root / "benchmark" / sub)
     for sub in ("configs", "traffic", "limits"):
         shutil.copytree(TINY / sub, root / "benchmark" / sub)

@@ -9,7 +9,7 @@ import json
 import pytest
 import torch
 
-from benchmark.harness import cell
+from benchmark.harness import cell, family
 
 from bench_tiny import make_root, run
 
@@ -70,6 +70,69 @@ def test_added_files_are_found_by_name(monkeypatch, root):
     assert res["correct"]
     assert res["metrics"]["calls_seen"]["value"] >= 1
     assert earlier[1]["traffic"]["depths"] == {2: res["attempted"]}
+
+
+# DINOv2 with registers as the hub's ``_reg`` models have them (4 tokens
+# after the cls token, the position grid resized antialiased in size mode)
+REG_FAMILY = '''
+from benchmark.families import dinov2
+
+def keys(sec, prefix):
+    return dinov2.keys(sec, prefix, registers=4)
+
+def forward(w, x, sec):
+    return dinov2.forward(w, x, sec, registers=4, offset=0.0,
+                          antialias={antialias})
+
+def tokens(sec):
+    return dinov2.tokens(sec, registers=4)
+
+def flops(sec):
+    return dinov2.flops(sec, registers=4)
+'''
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_a_family_added_by_file_is_found_by_name(monkeypatch, tmp_path,
+                                                 fault):
+    """A configuration whose coarse family exists only as a file added to
+    the root runs correct on the program's tiny DINOv2 given registers;
+    the same family with a fault planted in its ``forward`` (the position
+    grid resized without antialiasing) does not."""
+    from protosam_tpu_torch.models.alpnet import fewshot
+    from protosam_tpu_torch.models.dinov2 import vit
+
+    monkeypatch.setitem(vit._DINO_CONFIGS, "dinov2_vitt14_reg", dict(
+        vit._DINO_CONFIGS["dinov2_vitt14"], num_register_tokens=4,
+        interpolate_antialias=True, interpolate_offset=0.0))
+    monkeypatch.setitem(fewshot._ENCODER_ALIASES, "dinov2_t14_reg",
+                        "dinov2_vitt14_reg")
+    root = make_root(tmp_path)
+    (root / "benchmark/families/dinov2_reg.py").write_text(
+        REG_FAMILY.format(antialias=not fault))
+    cfg = json.loads((root / "benchmark/configs/tiny.json").read_text())
+    cfg["coarse"]["family"] = "dinov2_reg"
+    cfg["program"]["modelname"] = "dinov2_t14_reg"
+    (root / "benchmark/configs/tiny_reg.json").write_text(json.dumps(cfg))
+    (root / "benchmark/limits/t.reg.json").write_text(
+        (root / "benchmark/limits/t.vol.json").read_text())
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "tiny_reg", "source": "t",
+                         "file": "benchmark/configs/tiny_reg.json",
+                         "reduced": [], "why": "t"})
+    b["workloads"].append({"name": "t.reg", "config": "tiny_reg",
+                           "traffic": "vol", "chips": 1, "why": "t"})
+    b["end_to_end"][0]["workloads"].append("t.reg")
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    # 8² patches at 112 px, the cls token and 4 registers
+    assert family.load(cfg["coarse"], root).tokens(cfg["coarse"]) == 69
+    res, lines, _ = run(monkeypatch, root, "t.reg")
+    if not fault:
+        assert res["correct"], lines
+        return
+    assert not res["correct"], lines
+    v = res["checks"]["feat_nsr"]
+    assert v["value"] > v["limit"], lines
 
 
 def test_control_comes_out_not_correct(monkeypatch, root):
@@ -158,3 +221,9 @@ def test_manifest_names_match_files():
     for m in b["end_to_end"] + b["per_layer"]:
         assert (cell.ROOT / "benchmark/metrics" / f"{m['name']}.py"
                 ).exists(), m["name"]
+    for conf in b["configs"]:
+        cfg = json.loads((cell.ROOT / conf["file"]).read_text())
+        for sec in (cfg["coarse"], cfg["sam"]):
+            fam = family.load(sec)
+            for fn in ("keys", "forward", "flops"):
+                assert callable(getattr(fam, fn)), (sec["family"], fn)

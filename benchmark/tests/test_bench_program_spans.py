@@ -131,7 +131,6 @@ def test_tiny_eval_cell_reports_the_program_spans(tmp_path, monkeypatch):
     """The tiny eval cell, run traced on the CPU with the four metrics in
     its manifest, reports them; the decoded bytes are what the fold's
     files decompress to."""
-    from protosam_tpu_torch import native
     from protosam_tpu_torch.eval import protosam_eval
 
     root = make_root(tmp_path)
@@ -154,8 +153,7 @@ def test_tiny_eval_cell_reports_the_program_spans(tmp_path, monkeypatch):
     scans, depth, side = (len(fold["fold"]["scan_ids"]),
                           fold["fold"]["depth"], fold["fold"]["side"])
     image, label = depth * side * side * 4, depth * side * side * 2
-    reads = 2 if native.native_available() else 1
-    # each file decompresses to its 352 header bytes and its voxels
-    decoded = scans * (reads * (352 + image) + 352 + label)
+    # each file is inflated once, to its 352 header bytes and its voxels
+    decoded = scans * (352 + image + 352 + label)
     assert got["eval_decoded_mb_per_slice"] == pytest.approx(
         decoded / 1e6 / (traffic["slices"] / traffic["calls"]))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import cell, roofline, synth, trace, weights
+from benchmark.harness import cell, family, roofline, synth, trace, weights
 from benchmark.harness.trace import Op, Span, Trace
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
@@ -34,21 +34,42 @@ def _imports(path: pathlib.Path) -> set[str]:
                          ids=lambda p: str(p.relative_to(BENCH)))
 def test_imports_no_jax(path):
     """Top-level names compared whole: ``protosam_tpu_torch`` is the
-    program, ``protosam_tpu`` the JAX package; the reference imports
-    nothing of the program."""
+    program, ``protosam_tpu`` the JAX package; the reference and the model
+    families import nothing of the program."""
     found = _imports(path)
     assert not found & FORBIDDEN, found
-    if "reference" in path.relative_to(BENCH).parts:
+    if {"reference", "families"} & set(path.relative_to(BENCH).parts):
         assert "protosam_tpu_torch" not in found, found
 
 
-def test_flop_counts_match_the_port():
+PUBLISHED = sorted(p.stem for p in (BENCH / "configs").glob("*.json"))
+
+
+def _config(name: str) -> dict:
+    path = BENCH / ("tests/tiny/configs" if name == "tiny" else "configs")
+    return json.loads((path / f"{name}.json").read_text())
+
+
+@pytest.mark.parametrize("name", PUBLISHED)
+def test_flop_counts_match_the_port(name):
+    """Each published configuration's families count what the port's
+    ``tools/roofline.py`` counts for the same models."""
     from protosam_tpu_torch.tools import roofline as port
 
-    for name in ("dinov2_l14", "dinov2_b14"):
-        assert roofline.dino_flops(name, 672) == port.dino_flops(name, 672)
-    for ver in ("vit_b", "vit_l", "vit_h"):
-        assert roofline.sam_flops(ver) == port.sam_flops(ver)
+    cfg = _config(name)
+    c, s = cfg["coarse"], cfg["sam"]
+    assert family.load(c).flops(c) == port.dino_flops(
+        cfg["program"]["modelname"], c["input_size"])
+    assert family.load(s).flops(s) == port.sam_flops(
+        s["model"], s["image_size"], s["window_size"])
+    dino, sam = roofline.slice_flops(cfg)
+    assert (dino, sam) == (sum(family.load(c).flops(c).values()),
+                           sum(family.load(s).flops(s).values()))
+
+
+def test_kernel_counts_match_the_port():
+    from protosam_tpu_torch.tools import roofline as port
+
     for label, (name, shapes) in port.MAIN_PATH_SHAPES.items():
         assert roofline.kernel_cost(name, **shapes) == \
             port.kernel_cost(name, **shapes), label
@@ -145,36 +166,38 @@ def test_trace_parse_by_hand():
     assert trace.union_us([(0, 2), (1, 3), (5, 6)], 0, 10) == 4
 
 
-@pytest.mark.parametrize("name", ["protosam_l14_vith", "protosam_l14_vitb",
-                                  "tiny"])
-def test_weight_layout_is_the_programs(name):
-    """The benchmark's published layout loads strictly into the program's
-    models (same keys, same shapes), and its roles are the program's own
-    recipe's (``utils/synthetic.synthetic_state_dict``)."""
+@pytest.mark.parametrize("name", PUBLISHED + ["tiny"])
+@pytest.mark.parametrize("section", ["coarse", "sam"])
+def test_weight_layout_is_the_programs(name, section):
+    """Each family's published layout, at each configuration's sizes,
+    loads strictly into the program's model (same keys, same shapes), and
+    its roles are the program's own recipe's
+    (``utils/synthetic.synthetic_state_dict``)."""
     from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
     from protosam_tpu_torch.models.sam.registry import build_sam
     from protosam_tpu_torch.utils.synthetic import synthetic_state_dict
 
-    path = BENCH / ("tests/tiny/configs" if name == "tiny" else "configs")
-    cfg = json.loads((path / f"{name}.json").read_text())
+    cfg = _config(name)
     with torch.device("meta"):
-        coarse = FewShotSeg(cfg["coarse"]["input_size"],
-                            cfg["program"]["modelname"])
-        sam = build_sam(cfg["sam"]["model"], cfg["sam"]["image_size"])
-    for module, keys in ((coarse, weights.coarse_keys(cfg)),
-                         (sam, weights.sam_keys(cfg))):
-        sd = module.state_dict()
-        assert {k: tuple(s) for k, s, _ in keys} == \
-            {k: tuple(v.shape) for k, v in sd.items()}
-        if name != "tiny":
-            continue
-        ref = synthetic_state_dict(module, 0)
-        for k, _, role in keys:
-            mean = float(ref[k].mean())
-            want = {"norm": 1.0, "bias": 0.0, "other": 0.0}[role]
-            assert abs(mean - want) < 0.05, (k, role, mean)
-            if role == "other":
-                assert float(ref[k].std()) > 0.005 or ref[k].numel() < 4, k
+        if section == "coarse":
+            module = FewShotSeg(cfg["coarse"]["input_size"],
+                                cfg["program"]["modelname"])
+            keys = weights.coarse_keys(cfg)
+        else:
+            module = build_sam(cfg["sam"]["model"], cfg["sam"]["image_size"])
+            keys = weights.sam_keys(cfg)
+    sd = module.state_dict()
+    assert {k: tuple(s) for k, s, _ in keys} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+    if name != "tiny":
+        return
+    ref = synthetic_state_dict(module, 0)
+    for k, _, role in keys:
+        mean = float(ref[k].mean())
+        want = {"norm": 1.0, "bias": 0.0, "other": 0.0}[role]
+        assert abs(mean - want) < 0.05, (k, role, mean)
+        if role == "other":
+            assert float(ref[k].std()) > 0.005 or ref[k].numel() < 4, k
 
 
 def test_weights_follow_the_recipe():
