@@ -37,7 +37,9 @@ _ENCODER_ALIASES = {
     "dinov2_l14_reg": "dinov2_vitl14_reg",
     "dinov2_b14": "dinov2_vitb14",
     "dinov2_s14": "dinov2_vits14",
+    "dinov2_g14": "dinov2_vitg14",
     "dinov2_t14": "dinov2_vitt14",
+    "dinov2_gt14": "dinov2_vitgt14",
 }
 
 

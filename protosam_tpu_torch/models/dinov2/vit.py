@@ -1,12 +1,18 @@
 """DINOv2 vision transformer (frozen feature extractor), hub state_dict
 layout: ViT with 14-px patches, cls token (+ optional registers),
-LayerScale, pre-norm blocks and bicubic pos-embed interpolation.
+LayerScale, pre-norm blocks and bicubic pos-embed interpolation.  The FFN
+is the variant's: fc1-GELU-fc2 (``Mlp``), or for ViT-g/14 the gated
+``SwiGLUFFN`` (hub ``layers/swiglu_ffn.py``, ``ffn_layer="swiglufused"``).
 
 The reference consumes ``forward_features(...)["x_norm_patchtokens"]``
 (grid_proto_fewshot.py:90-98).  Attention runs on kernel K2 straight from
 the packed qkv projection; the block LayerNorms run on kernel K1.
-``quant_dense`` makes the blocks' qkv, proj, fc1 and fc2 int8 layers
+``quant_dense`` makes the blocks' qkv, proj and FFN layers int8 layers
 (``ops/quant.QuantLinear``, kernels K8 and K9), JAX ``vit.py:50-64,111-130``.
+
+Traced (``utils/profiling.py``): ``dinov2.encode`` around a forward pass,
+counting its ``images``, ``tokens`` (the padded sequence times the images)
+and ``blocks``, and ``dinov2.ffn`` around each block's FFN.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from protosam_tpu_torch.models.master import Conv2d
 from protosam_tpu_torch.ops.attention import masked_flash_attention_packed
 from protosam_tpu_torch.ops.quant import dense_cls
 from protosam_tpu_torch.ops.resize import resize_bicubic_torch
+from protosam_tpu_torch.utils import profiling
 
 
 class Attention(nn.Module):
@@ -59,25 +66,58 @@ class Mlp(nn.Module):
         self.fc1 = linear(dim, hidden)
         self.fc2 = linear(hidden, dim)
 
+    @staticmethod
+    def hidden_features(dim: int, mlp_ratio: float) -> int:
+        return int(dim * mlp_ratio)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_for(self.fc1(x)))
 
 
+class SwiGLUFFN(nn.Module):
+    """The gated FFN of ViT-g/14: ``w3(silu(x1) * x2)`` with ``x1, x2 =
+    w12(x).chunk(2, -1)`` (hub ``SwiGLUFFN`` / ``SwiGLUFFNFused``, the same
+    keys)."""
+
+    def __init__(self, dim: int, hidden: int, quant_dense: bool = False):
+        super().__init__()
+        linear = dense_cls(quant_dense)
+        self.w12 = linear(dim, 2 * hidden)
+        self.w3 = linear(hidden, dim)
+
+    @staticmethod
+    def hidden_features(dim: int, mlp_ratio: float) -> int:
+        """The hub's ``SwiGLUFFNFused`` width: two thirds of ``dim *
+        mlp_ratio``, rounded up to a multiple of 8 (4096 at ViT-g's
+        1536)."""
+        return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(nn.functional.silu(x1) * x2)
+
+
+FFNS: dict[str, type[nn.Module]] = {"mlp": Mlp, "swiglu": SwiGLUFFN}
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 quant_dense: bool = False):
+                 quant_dense: bool = False, ffn: type[nn.Module] = Mlp):
         super().__init__()
         self.norm1 = TokenLayerNorm(dim, 1e-6)
         self.attn = Attention(dim, num_heads, quant_dense)
         self.ls1 = LayerScale(dim)
         self.norm2 = TokenLayerNorm(dim, 1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant_dense)
+        self.mlp = ffn(dim, ffn.hidden_features(dim, mlp_ratio), quant_dense)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor,
                 valid_tokens: int | None) -> torch.Tensor:
         x = x + self.ls1(self.attn(self.norm1(x), valid_tokens))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        y = self.norm2(x)
+        with profiling.span("dinov2.ffn", device=x.device):
+            y = self.mlp(y)
+        return x + self.ls2(y)
 
 
 class DinoVisionTransformer(nn.Module):
@@ -92,7 +132,8 @@ class DinoVisionTransformer(nn.Module):
                  mlp_ratio: float = 4.0, num_register_tokens: int = 0,
                  pos_embed_size: int = 37,
                  interpolate_antialias: bool = False,
-                 interpolate_offset: float = 0.1, quant_dense: bool = False):
+                 interpolate_offset: float = 0.1, quant_dense: bool = False,
+                 ffn: str = "mlp"):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -112,7 +153,7 @@ class DinoVisionTransformer(nn.Module):
         self.patch_embed.proj = Conv2d(3, embed_dim, patch_size,
                                        patch_size)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, quant_dense)
+            Block(embed_dim, num_heads, mlp_ratio, quant_dense, FFNS[ffn])
             for _ in range(depth))
         # f32 even under a bf16 build: it feeds the ALP cosine match whose
         # argmax seeds CCA and every SAM prompt (the f32 coarse tail)
@@ -124,24 +165,27 @@ class DinoVisionTransformer(nn.Module):
         ``x_norm_patchtokens`` (B, N, C), all f32."""
         b, _, h, w = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
-        dt = self.compute_dtype or self.patch_embed.proj.weight.dtype
-        x = self.patch_embed.proj(x.to(dt)).flatten(2).transpose(1, 2)
-        x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
-        x = x + self._interpolate_pos_encoding(gh, gw).to(dt)
-        if self.num_register_tokens:
-            x = torch.cat([x[:, :1],
-                           self.register_tokens.to(dt).expand(b, -1, -1),
-                           x[:, 1:]], dim=1)
-        # pad the sequence once to a 128 multiple and mask the pad keys in
-        # every layer (small test-size sequences are not padded)
-        n_tokens = x.shape[1]
-        n_pad = (-n_tokens) % 128 if n_tokens >= 2048 else 0
-        if n_pad:
-            x = nn.functional.pad(x, (0, 0, 0, n_pad))
-        valid = n_tokens if n_pad else None
-        for blk in self.blocks:
-            x = blk(x, valid)
-        x = self.norm(x[:, :n_tokens])
+        with profiling.span("dinov2.encode", device=x.device, images=b,
+                            blocks=len(self.blocks)) as enc:
+            dt = self.compute_dtype or self.patch_embed.proj.weight.dtype
+            x = self.patch_embed.proj(x.to(dt)).flatten(2).transpose(1, 2)
+            x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
+            x = x + self._interpolate_pos_encoding(gh, gw).to(dt)
+            if self.num_register_tokens:
+                x = torch.cat([x[:, :1],
+                               self.register_tokens.to(dt).expand(b, -1, -1),
+                               x[:, 1:]], dim=1)
+            # pad the sequence once to a 128 multiple and mask the pad keys
+            # in every layer (small test-size sequences are not padded)
+            n_tokens = x.shape[1]
+            n_pad = (-n_tokens) % 128 if n_tokens >= 2048 else 0
+            if n_pad:
+                x = nn.functional.pad(x, (0, 0, 0, n_pad))
+            enc.attrs["tokens"] = b * x.shape[1]
+            valid = n_tokens if n_pad else None
+            for blk in self.blocks:
+                x = blk(x, valid)
+            x = self.norm(x[:, :n_tokens])
         r = self.num_register_tokens
         return {"x_norm_clstoken": x[:, 0],
                 "x_norm_regtokens": x[:, 1:1 + r],
@@ -183,8 +227,11 @@ _DINO_CONFIGS: dict[str, dict[str, Any]] = {
                               num_register_tokens=4,
                               interpolate_antialias=True,
                               interpolate_offset=0.0),
-    # test-size model for CPU-runnable configs
+    "dinov2_vitg14": dict(embed_dim=1536, depth=40, num_heads=24,
+                          ffn="swiglu"),
+    # test-size models for CPU-runnable configs
     "dinov2_vitt14": dict(embed_dim=64, depth=2, num_heads=2),
+    "dinov2_vitgt14": dict(embed_dim=96, depth=2, num_heads=4, ffn="swiglu"),
 }
 
 
@@ -197,4 +244,5 @@ def build_dinov2(name: str,
                                  **_DINO_CONFIGS[name])
 
 
-__all__ = ["DinoVisionTransformer", "build_dinov2", "cast_compute"]
+__all__ = ["DinoVisionTransformer", "SwiGLUFFN", "build_dinov2",
+           "cast_compute"]

@@ -152,9 +152,11 @@ def irecv(shape, dtype, device, src: int):
 
 # (JAX ``parallel/sharding.py:37-38``)
 #   column-parallel (output units): qkv, DINOv2's mlp.fc1, SAM's lin1, the
-#     decoder's q_proj / k_proj / v_proj, with their biases;
-#   row-parallel (input units): proj, mlp.fc2, lin2, out_proj; the partial
-#     products all-reduced over the model group, then the bias added once.
+#     decoder's q_proj / k_proj / v_proj, with their biases; the gated
+#     FFN's mlp.w12 by the same hidden units in each of its two halves;
+#   row-parallel (input units): proj, mlp.fc2, mlp.w3, lin2, out_proj; the
+#     partial products all-reduced over the model group, then the bias
+#     added once.
 #
 # Which routes take a shard, as under JAX's shard_params=True: kernels K6
 # (``dense_residual``, the fused projection) and K7 (``mlp_fused``) take
@@ -223,7 +225,8 @@ def encoder_param_sharding(module: nn.Module, mesh: Mesh) -> dict[str, str]:
     axis, in place (each rank keeps its shard; the rest is freed), and
     return {layer name: "column" | "row"}.  Attention splits by heads:
     qkv's rows head by head of q, k and v, and the head count each rank
-    runs; the MLP by hidden units.  A no-op at one model rank."""
+    runs; the MLP by hidden units (the gated FFN's gate and value rows of
+    the same units together).  A no-op at one model rank."""
     if mesh.n_model == 1:
         return {}
     plan: dict[str, str] = {}
@@ -238,13 +241,16 @@ def encoder_param_sharding(module: nn.Module, mesh: Mesh) -> dict[str, str]:
             plan[f"{name}.attn.qkv"] = "column"
             plan[f"{name}.attn.proj"] = "row"
         mlp = getattr(mod, "mlp", None)
-        pair = (("fc1", "fc2") if hasattr(mlp, "fc1") else ("lin1", "lin2")
-                if hasattr(mlp, "lin1") else None)
+        pair = next((p for p in (("fc1", "fc2"), ("lin1", "lin2"),
+                                 ("w12", "w3")) if hasattr(mlp, p[0])), None)
         if pair and _plain(*(getattr(mlp, p) for p in pair)) \
                 and not (fused_mlp and _bf16(mlp)):
             up, down = (getattr(mlp, p) for p in pair)
-            units = _units(up.out_features, mesh, f"{name}.mlp")
-            setattr(mlp, pair[0], _column(up, units))
+            units = _units(down.in_features, mesh, f"{name}.mlp")
+            # w12's rows are the gate's hidden units, then the value's
+            rows = torch.cat([units, units + down.in_features]) \
+                if pair[0] == "w12" else units
+            setattr(mlp, pair[0], _column(up, rows))
             setattr(mlp, pair[1], _row(down, units, mesh.model_group))
             plan[f"{name}.mlp.{pair[0]}"] = "column"
             plan[f"{name}.mlp.{pair[1]}"] = "row"

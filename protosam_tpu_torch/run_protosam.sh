@@ -4,7 +4,7 @@
 #   protosam_tpu_torch/run_protosam.sh [ct|mri|polyp] [LABEL_SET]
 set -e
 
-MODEL_NAME=${MODEL_NAME:-'dinov2_l14'}      # dinov2_l14 | dinov2_l14_reg | dinov2_b14 | dlfcn_res101
+MODEL_NAME=${MODEL_NAME:-'dinov2_l14'}      # dinov2_l14 | dinov2_l14_reg | dinov2_b14 | dinov2_g14 | dlfcn_res101
 COARSE_PRED_ONLY=${COARSE_PRED_ONLY:-"False"}
 PROTOSAM_SAM_VER=${PROTOSAM_SAM_VER:-"sam_h"}  # sam_h | sam_b | medsam
 INPUT_SIZE=${INPUT_SIZE:-672}

@@ -11,11 +11,15 @@ set below 700 W runs slower under load, so the tool prints the card's own
 measurements and are not carried over.
 
 ``dino_flops`` / ``sam_flops`` count per pipeline stage.  Their dense-GEMM
-counts equal the JAX tool's.  Attention counts the math the card runs:
-QKᵀ + PV over the real keys (DINOv2: every padded query row against the
-``n_valid`` real keys), plus, for SAM, the einsums that build the compact
-rel-pos bias.  The JAX tool counted the TPU kernels' augmented contraction
-lanes (K = hd + H + W) instead, so its attention counts are larger.
+counts equal the JAX tool's for the models both tools know; the gated FFN
+of DINOv2 ViT-g/14 (``dinov2_g14``, which the JAX tool lacks) counts its
+three matrices, w12 (two of them) and w3, at 3·h·C multiply-adds a token,
+h the hub's hidden width (``SwiGLUFFN.hidden_features``).  Attention
+counts the math the card runs: QKᵀ + PV over the real keys (DINOv2: every
+padded query row against the ``n_valid`` real keys), plus, for SAM, the
+einsums that build the compact rel-pos bias.  The JAX tool counted the TPU
+kernels' augmented contraction lanes (K = hd + H + W) instead, so its
+attention counts are larger.
 
 ``kernel_cost(name, **shapes)`` gives each kernel's (flops, bytes,
 bound_ms, bound_by): bytes count each input read once and each output
@@ -32,6 +36,8 @@ from __future__ import annotations
 
 import argparse
 
+from protosam_tpu_torch.models.dinov2.vit import FFNS
+
 PEAK_BF16 = 989e12   # FLOP/s, tensor cores, dense
 PEAK_INT8 = 1979e12  # OP/s, tensor cores, dense
 PEAK_F32 = 67e12     # FLOP/s, CUDA cores
@@ -46,10 +52,11 @@ SAM_CFG = {
 }
 
 DINO_CFG = {
-    # embed, depth, heads, mlp_ratio
-    "dinov2_l14": (1024, 24, 16, 4),
-    "dinov2_b14": (768, 12, 12, 4),
-    "dinov2_t14": (192, 12, 3, 4),
+    # embed, depth, heads, mlp_ratio, ffn (``models/dinov2/vit.FFNS``)
+    "dinov2_l14": (1024, 24, 16, 4, "mlp"),
+    "dinov2_b14": (768, 12, 12, 4, "mlp"),
+    "dinov2_g14": (1536, 40, 24, 4, "swiglu"),
+    "dinov2_t14": (192, 12, 3, 4, "mlp"),
 }
 
 
@@ -60,12 +67,15 @@ def dino_seq(n_tokens: int) -> int:
 
 
 def dino_flops(name: str, image_size: int) -> dict[str, float]:
-    c, depth, heads, mlp = DINO_CFG[name]
+    c, depth, heads, mlp, ffn = DINO_CFG[name]
     hd = c // heads
     grid = image_size // 14
     n_tokens = grid * grid + 1
     s = dino_seq(n_tokens)
-    dense = 2 * s * (3 * c * c + c * c + 2 * mlp * c * c) * depth
+    h = FFNS[ffn].hidden_features(c, mlp)
+    # multiply-adds a token: fc1 and fc2, or the gated w12 (2h) and w3
+    ffn_weights = (3 if ffn == "swiglu" else 2) * h * c
+    dense = 2 * s * (3 * c * c + c * c + ffn_weights) * depth
     attn = 2 * 2 * s * n_tokens * hd * heads * depth  # QKᵀ + PV, real keys
     patch = 2 * grid * grid * (14 * 14 * 3) * c
     return {"dinov2 dense gemms": dense + patch, "dinov2 attention": attn}

@@ -211,12 +211,20 @@ def load_sam_pth(path: str) -> dict[str, torch.Tensor]:
     return dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
+# HF FFN names -> the hub's: fc1-GELU-fc2, and the gated FFN
+_HF_FFN = (("fc1", "fc1"), ("fc2", "fc2"), ("weights_in", "w12"),
+           ("weights_out", "w3"))
+
+
 def hf_dinov2_to_hub_state_dict(sd: Mapping[str, torch.Tensor]
                                 ) -> dict[str, torch.Tensor]:
     """A HuggingFace ``Dinov2Model`` state_dict in the facebook-hub layout
     of the port's DINOv2 (per-layer q/k/v fused back into qkv), as JAX
     ``utils/torch_convert.py:291`` maps it for its converter.  HF mirrors
-    the hub weights (facebook/dinov2-large etc.) under other names."""
+    the hub weights (facebook/dinov2-large etc.) under other names; the
+    gated FFN of ``facebook/dinov2-giant`` (``use_swiglu_ffn``) keeps the
+    hub's packing under ``mlp.weights_in`` (the hub's ``w12``) and
+    ``mlp.weights_out`` (``w3``)."""
     sd = {k: torch.as_tensor(v) for k, v in sd.items()}
     out = {
         "cls_token": sd["embeddings.cls_token"],
@@ -243,8 +251,10 @@ def hf_dinov2_to_hub_state_dict(sd: Mapping[str, torch.Tensor]
                 sd[f"{p}attention.output.dense.{kind}"]
             for norm in ("norm1", "norm2"):
                 out[f"{b}{norm}.{kind}"] = sd[f"{p}{norm}.{kind}"]
-            for fc in ("fc1", "fc2"):
-                out[f"{b}mlp.{fc}.{kind}"] = sd[f"{p}mlp.{fc}.{kind}"]
+            for theirs, ours in _HF_FFN:
+                if f"{p}mlp.{theirs}.{kind}" in sd:
+                    out[f"{b}mlp.{ours}.{kind}"] = \
+                        sd[f"{p}mlp.{theirs}.{kind}"]
         out[f"{b}ls1.gamma"] = sd[f"{p}layer_scale1.lambda1"]
         out[f"{b}ls2.gamma"] = sd[f"{p}layer_scale2.lambda1"]
         i += 1

@@ -426,15 +426,24 @@ def test_pipeline_profile_instruments_the_five_stages():
     finally:
         del pipe.forward_volume
     counts = {k: v["count"] for k, v in stages.items()}
-    # support features once, the rest once per batch
+    # support features once, the rest once per batch; inside the coarse
+    # encoder one encode a call and one FFN a block (dinov2_t14: 2)
     assert counts == {"pipeline.volume": 1, "pipeline.support_encode": 1,
                       "pipeline.coarse": 2, "pipeline.prompts": 2,
-                      "pipeline.sam_encoder": 2, "pipeline.decode": 2}
+                      "pipeline.sam_encoder": 2, "pipeline.decode": 2,
+                      "dinov2.encode": 3, "dinov2.ffn": 6}
+    # the support image and two batches of two, 9² patches and the cls
+    # token each, two blocks a call
+    assert stages["dinov2.encode"]["counts"] == {"images": 5,
+                                                 "tokens": 5 * 82,
+                                                 "blocks": 6}
     volume = stages.pop("pipeline.volume")
-    assert sum(v["total_ms"] for v in stages.values()) == pytest.approx(
+    assert sum(v["total_ms"] for k, v in stages.items()
+               if k.startswith("pipeline.")) == pytest.approx(
         volume["total_ms"] - volume["self_ms"])
     # on the CPU no stage records device time
     assert not any("device_ms" in v for v in stages.values())
+    assert pipeline_profile.ffn_share(stages) is None
     assert all(torch.equal(a, b) for a, b in zip(got[0], want))
     assert not profiling.enabled()
     # 4 slices in batches of 2: none padded; no kernel launches on the CPU
