@@ -32,6 +32,7 @@ from protosam_tpu_torch.models.layers import (LayerNorm2d, MLPBlock,
                                               TokenLayerNorm, gelu_for)
 from protosam_tpu_torch.ops.mlp import dense_residual
 from protosam_tpu_torch.ops.quant import QuantLinear, dense_cls
+from protosam_tpu_torch.ops.tables import device_table
 from protosam_tpu_torch.ops.vitdet_flash import (global_packed_attention,
                                                  window_packed_attention)
 
@@ -46,11 +47,17 @@ def rel_pos_table(rel_pos: torch.Tensor, q_size: int,
         rel_pos = F.interpolate(
             rel_pos.float().T[None], size=max_rel, mode="linear"
         )[0].T.to(rel_pos.dtype)
+    return rel_pos[device_table(("rel_pos_index", q_size, k_size),
+                                lambda: _rel_pos_index_np(q_size, k_size),
+                                rel_pos.device)]
+
+
+def _rel_pos_index_np(q_size: int, k_size: int) -> np.ndarray:
+    """(q, k) int64 row of the rel-pos table for each query/key pair."""
     q = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
     k = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
     rel = (q - k) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[torch.as_tensor(rel.astype(np.int64),
-                                   device=rel_pos.device)]
+    return rel.astype(np.int64)
 
 
 class Attention(nn.Module):

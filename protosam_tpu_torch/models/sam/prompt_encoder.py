@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from protosam_tpu_torch.models.layers import LayerNorm2d
+from protosam_tpu_torch.ops.tables import device_table
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -66,9 +67,10 @@ class PromptEncoder(nn.Module):
         self.no_mask_embed = nn.Embedding(1, embed_dim)
 
     def _pe_points(self, coords: torch.Tensor) -> torch.Tensor:
-        size = torch.tensor([self.input_image_size[1],
-                             self.input_image_size[0]], dtype=torch.float32,
-                            device=coords.device)
+        h, w = self.input_image_size
+        size = device_table(
+            ("pe_points_size", h, w),
+            lambda: torch.tensor([w, h], dtype=torch.float32), coords.device)
         return self.pe_layer(coords.float() / size)
 
     def embed_points(self, coords: torch.Tensor, labels: torch.Tensor,

@@ -16,6 +16,7 @@ from protosam_tpu_torch.ops.resize import (longest_side_size,
                                            resize_bilinear,
                                            resize_bilinear_antialias,
                                            resize_nearest)
+from protosam_tpu_torch.ops.tables import device_table
 
 DEFAULT_PIXEL_MEAN = (123.675, 116.28, 103.53)
 DEFAULT_PIXEL_STD = (58.395, 57.12, 57.375)
@@ -76,8 +77,10 @@ def preprocess(x: torch.Tensor, img_size: int = 1024,
                pixel_std=DEFAULT_PIXEL_STD) -> torch.Tensor:
     """Normalise (B, 3, H, W) pixels and zero-pad bottom/right to the square
     encoder frame (reference sam.py:163-173)."""
-    mean = torch.tensor(pixel_mean, device=x.device).reshape(1, 3, 1, 1)
-    std = torch.tensor(pixel_std, device=x.device).reshape(1, 3, 1, 1)
+    norm = (tuple(map(float, pixel_mean)), tuple(map(float, pixel_std)))
+    mean, std = device_table(("pixel_norm", norm, torch.get_default_dtype()),
+                             lambda: torch.tensor(norm), x.device
+                             ).reshape(2, 1, 3, 1, 1)
     x = (x - mean) / std
     h, w = x.shape[-2:]
     return F.pad(x, (0, img_size - w, 0, img_size - h))

@@ -4,11 +4,11 @@ on the trailing (H, W) dims of NCHW-like tensors."""
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from protosam_tpu_torch.ops.tables import device_table
 
 
 def _as4d(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
@@ -71,10 +71,8 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     h_in, w_in = x.shape[-2:]
     if (h_in, w_in) == tuple(size):
         return x
-    rows = torch.as_tensor(_nearest_src_np(h_in, int(size[0])),
-                           device=x.device)
-    cols = torch.as_tensor(_nearest_src_np(w_in, int(size[1])),
-                           device=x.device)
+    rows = _nearest_src(h_in, int(size[0]), x.device)
+    cols = _nearest_src(w_in, int(size[1]), x.device)
     return x[..., rows, :][..., :, cols]
 
 
@@ -104,7 +102,6 @@ def resize_bicubic_torch(x: torch.Tensor, size: tuple[int, int],
     return y.reshape(*lead, *y.shape[-2:]).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
 def _linear_weights_np(in_size: int, out_size: int) -> np.ndarray:
     """(out, in) bilinear matrix, ``align_corners=False``: half-pixel
     source ``src = (i+0.5)*in/out - 0.5`` in f32 like torch, border-clamped,
@@ -129,6 +126,24 @@ def _nearest_src_np(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(src, 0, in_size - 1)
 
 
+def _nearest_src(in_size: int, out_size: int,
+                 device: torch.device) -> torch.Tensor:
+    """``_nearest_src_np`` as a table on ``device``."""
+    return device_table(("nearest_src", in_size, out_size),
+                        lambda: _nearest_src_np(in_size, out_size), device)
+
+
+def _bilinear_then_nearest_weights(in_size: int, mid: int, out_size: int,
+                                   device: torch.device) -> torch.Tensor:
+    """(out, in) f32 matrix of the bilinear resize to ``mid`` with its rows
+    selected at the nearest sources of ``out_size``, as a table on
+    ``device``."""
+    return device_table(
+        ("bilinear_then_nearest", in_size, mid, out_size),
+        lambda: _linear_weights_np(in_size, mid)[
+            _nearest_src_np(mid, out_size)], device)
+
+
 def resize_bilinear_then_nearest(x: torch.Tensor, mid: tuple[int, int],
                                  size: tuple[int, int]) -> torch.Tensor:
     """``resize_nearest(resize_bilinear(x, mid), size)`` without the
@@ -138,12 +153,10 @@ def resize_bilinear_then_nearest(x: torch.Tensor, mid: tuple[int, int],
     if tuple(mid) == tuple(size):
         return resize_bilinear(x, size)
     h_in, w_in = x.shape[-2:]
-    wr = _linear_weights_np(h_in, int(mid[0]))[
-        _nearest_src_np(int(mid[0]), int(size[0]))]
-    wc = _linear_weights_np(w_in, int(mid[1]))[
-        _nearest_src_np(int(mid[1]), int(size[1]))]
-    wr = torch.as_tensor(wr, device=x.device)
-    wc = torch.as_tensor(wc, device=x.device)
+    wr = _bilinear_then_nearest_weights(h_in, int(mid[0]), int(size[0]),
+                                        x.device)
+    wc = _bilinear_then_nearest_weights(w_in, int(mid[1]), int(size[1]),
+                                        x.device)
     y = torch.einsum("...hw,jw->...hj", x.float(), wc)
     y = torch.einsum("...hj,ih->...ij", y, wr)
     return y.to(x.dtype)

@@ -40,6 +40,7 @@ from protosam_tpu_torch.ops.resize import (resize_bilinear,
                                            resize_nearest)
 from protosam_tpu_torch.ops.rotate import (reverse_tensor,
                                            rotate_tensor_no_crop)
+from protosam_tpu_torch.ops.tables import device_table
 from protosam_tpu_torch.utils import profiling
 
 
@@ -273,14 +274,17 @@ class ProtoSAM:
         """Segment a slice stack: queries (N, 3, H, W) -> (preds (N, H, W),
         scores (N, K)).  The support set is encoded once per volume; N is
         padded to a multiple of ``slice_batch``.  One ``pipeline.volume``
-        span, which counts the slices, the padded ones and the kernels'
-        launches (K1-K9, from each wrapper's ``launches``)."""
+        span, which counts the slices, the padded ones, the kernels'
+        launches (K1-K9, from each wrapper's ``launches``) and the
+        shape-only tables built (``tables``, from ``device_table.builds``:
+        0 once a call of the same shapes has run)."""
         inp = coarse_model_input
         dev, n = queries.device, queries.shape[0]
         pad = (-n) % slice_batch
         with profiling.span("pipeline.volume", device=dev, slices=n,
                             padded=pad) as vol:
             before = launch_counts()
+            tables = device_table.builds
             supp_fts = inp.supp_fts
             if supp_fts is None:
                 with profiling.span("pipeline.support_encode", device=dev,
@@ -300,6 +304,7 @@ class ProtoSAM:
             vol.attrs["launches"] = {
                 k: c - before[k] for k, c in launch_counts().items()
                 if c != before[k]}
+            vol.attrs["tables"] = device_table.builds - tables
         return torch.cat(preds)[:n], torch.cat(scores)[:n]
 
     def _mesh_pipeline(self, mesh, shard_params: bool) -> "ProtoSAM":

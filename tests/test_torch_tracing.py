@@ -6,6 +6,7 @@ synthetic CHAOS-T2 fold (``tests/synthetic_data.py``; dinov2_t14 at 64 px
 + SAM vit_t at a 256 frame, f32), and outputs bit-equal with tracing on
 and off."""
 
+import collections
 import gzip
 import json
 import os
@@ -26,6 +27,7 @@ from protosam_tpu_torch.eval import protosam_eval
 from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
 from protosam_tpu_torch.models.sam.registry import build_sam
 from protosam_tpu_torch.native import feeder
+from protosam_tpu_torch.ops import tables
 from protosam_tpu_torch.utils import profiling
 from protosam_tpu_torch.utils.config import Config
 from protosam_tpu_torch.utils.synthetic import (smooth_volume,
@@ -313,7 +315,8 @@ def test_run_eval_spans_follow_the_driver(data_dir, pipe, monkeypatch,
     assert table["eval.load_fold"]["counts"]["bytes_decoded"] == want
     assert table["eval.gather_queries"]["counts"]["kept"] == n
     assert table["pipeline.volume"]["counts"] == {
-        "slices": n, "padded": sum(v.attrs["padded"] for v in volumes)}
+        "slices": n, "padded": sum(v.attrs["padded"] for v in volumes),
+        "tables": sum(v.attrs["tables"] for v in volumes)}
 
 
 def test_run_eval_span_leaves_out_building_the_pipeline(data_dir, pipe,
@@ -382,6 +385,19 @@ def test_forward_volume_is_bit_equal_with_tracing_on_and_off(pipe,
                   if s.name == "pipeline.volume")
     assert volume.attrs["padded"] == (-3) % slice_batch
     assert volume.attrs["slices"] == 3
+
+
+def test_volume_span_counts_the_tables_built(pipe, monkeypatch):
+    """``tables`` on ``pipeline.volume``: the shape-only tables the call
+    built, some on a first call, none on a second of the same shapes."""
+    monkeypatch.setattr(tables, "_tables", collections.OrderedDict())
+    vol, inp = _volume_inputs()
+    built = []
+    for _ in range(2):
+        pipe.forward_volume(vol, inp, slice_batch=2)
+        built.append(next(s for s in reversed(profiling.spans())
+                          if s.name == "pipeline.volume").attrs["tables"])
+    assert built[0] > 0 and built[1] == 0
 
 
 @pytest.mark.parametrize("mode", ["volume", "per_slice"])
