@@ -21,13 +21,11 @@ import numpy as np
 import torch
 
 from protosam_tpu_torch.data.dataset_registry import DATASET_INFO
-from protosam_tpu_torch.data.medical import med_fewshot_val
 from protosam_tpu_torch.data.nifti import write_nii
+from protosam_tpu_torch.eval import open_fold
 from protosam_tpu_torch.eval.ttt import test_time_training
 from protosam_tpu_torch.models.alpnet.fewshot import FewShotSeg
-from protosam_tpu_torch.ops.cca import (component_confidences,
-                                        connected_components,
-                                        keep_most_confident)
+from protosam_tpu_torch.ops.cca import components
 from protosam_tpu_torch.ops.resize import resize_nearest
 from protosam_tpu_torch.train.trainer import build_coarse_model
 from protosam_tpu_torch.utils.checkpoint import load_params
@@ -51,10 +49,9 @@ def coarse_predict(model: FewShotSeg, supp, fg, bg, qrys, val_wsize: int,
                        val_wsize=val_wsize)["logits"]
         pred = torch.argmax(logits, dim=1).float()
         if do_cca:
-            stats = connected_components(pred, max_ccs)
-            probs = torch.softmax(logits, dim=1)
-            conf = component_confidences(stats, probs[:, 1], pred)
-            pred = pred * keep_most_confident(stats, conf)
+            stats, _ = components(pred, torch.softmax(logits, dim=1)[:, 1],
+                                  max_ccs, True)
+            pred = pred * (stats.labels > 0)
         preds.append(pred)
     return torch.cat(preds)
 
@@ -77,15 +74,7 @@ def run_alpnet_eval(cfg: Config, model: FewShotSeg | None = None,
                          - info["LABEL_GROUP"][cfg.label_sets])
     max_label = len(info["REAL_LABEL_NAME"]) - 1
     slice_batch = slice_batch or cfg.slice_batch
-
-    suffix = "_672" if cfg.input_size[0] > 256 else ""
-    data_key = baseset + suffix if baseset + suffix in cfg.data_dirs \
-        else cfg.dataset
-    te_dataset, te_parent = med_fewshot_val(
-        dataset_name=baseset, base_dir=cfg.data_dir(data_key),
-        idx_split=cfg.eval_fold, act_labels=test_labels,
-        npart=cfg.n_sup_part, image_size=cfg.input_size[0],
-        use_clahe=cfg.use_clahe, use_3_slices=cfg.use_3_slices)
+    te_dataset, te_parent = open_fold(cfg, test_labels)
 
     if model is None:
         if state_dict is None and cfg.reload_model_path:

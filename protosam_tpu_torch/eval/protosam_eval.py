@@ -44,9 +44,9 @@ import torch
 
 from protosam_tpu_torch.data.dataset_registry import (DATASET_INFO,
                                                       ORGAN_CLASS)
-from protosam_tpu_torch.data.medical import med_fewshot_val
 from protosam_tpu_torch.data.polyp import PolypDataset
 from protosam_tpu_torch.entry import _allocate, build_pipeline
+from protosam_tpu_torch.eval import open_fold
 from protosam_tpu_torch.models.io_protocol import ALPNetInput
 from protosam_tpu_torch.models.layers import cast_compute
 from protosam_tpu_torch.models.sam.registry import build_sam
@@ -128,6 +128,13 @@ def resolve_test_class(cfg: Config) -> int:
     return ORGAN_CLASS[base][cfg.curr_cls]
 
 
+def _all_labels(cfg: Config) -> list:
+    """The labels of the dataset's ``pa_all`` group, which both ProtoSAM
+    evals load."""
+    base = cfg.dataset.split("_")[0]
+    return sorted(DATASET_INFO[base]["LABEL_GROUP"]["pa_all"])
+
+
 def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
              mode: str = "volume", profile: bool = False) -> dict:
     """Segment the fold of ``cfg`` and score it; ``pipe`` defaults to
@@ -145,24 +152,11 @@ def run_eval(cfg: Config, pipe: ProtoSAM | SamWrapper | None = None,
         return run_eval_polyp(cfg, pipe)
     if cfg.base_model.upper() == "SAM":
         return run_eval_sam_oracle(cfg, wrapper=pipe)
-    base = cfg.dataset.split("_")[0]
-    suffix = "_672" if cfg.input_size[0] > 256 else ""
-    data_key = base + suffix if base + suffix in cfg.data_dirs else cfg.dataset
     pipe = pipe or build_models(cfg)
     dev = next(pipe.coarse_model.parameters()).device
     with profiling.span("eval.run", mode=mode) as run:
         with profiling.span("eval.load_fold") as load:
-            te_dataset, volumes = med_fewshot_val(
-                dataset_name=base,
-                base_dir=cfg.data_dir(data_key),
-                idx_split=cfg.eval_fold,
-                act_labels=sorted(
-                    DATASET_INFO[base]["LABEL_GROUP"]["pa_all"]),
-                npart=cfg.n_sup_part,
-                image_size=cfg.input_size[0],
-                use_clahe=cfg.use_clahe,
-                use_3_slices=cfg.use_3_slices,
-            )
+            te_dataset, volumes = open_fold(cfg, _all_labels(cfg))
             te_dataset.set_curr_cls(resolve_test_class(cfg))
             load.attrs["scans"] = len(volumes.scan_z_idx)
             load.attrs["workers"] = volumes.load_workers
@@ -307,15 +301,7 @@ def run_eval_sam_oracle(cfg: Config, wrapper: SamWrapper | None = None
     ``wrapper`` defaults to ``build_sam_oracle(cfg)`` on the card.  Every
     test slice is a query (support scans included, as in JAX); the slices
     reach SAM as uint8 min-max images."""
-    base = cfg.dataset.split("_")[0]
-    suffix = "_672" if cfg.input_size[0] > 256 else ""
-    data_key = base + suffix if base + suffix in cfg.data_dirs else cfg.dataset
-    te_dataset, _ = med_fewshot_val(
-        dataset_name=base, base_dir=cfg.data_dir(data_key),
-        idx_split=cfg.eval_fold,
-        act_labels=sorted(DATASET_INFO[base]["LABEL_GROUP"]["pa_all"]),
-        npart=cfg.n_sup_part, image_size=cfg.input_size[0],
-        use_clahe=cfg.use_clahe, use_3_slices=cfg.use_3_slices)
+    te_dataset, _ = open_fold(cfg, _all_labels(cfg))
     te_dataset.set_curr_cls(resolve_test_class(cfg))
     wrapper = wrapper or build_sam_oracle(cfg)
 

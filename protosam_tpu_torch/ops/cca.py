@@ -39,6 +39,13 @@ class ComponentStats(NamedTuple):
     bboxes: torch.Tensor
     centroids: torch.Tensor
 
+    def onehot(self) -> torch.Tensor:
+        """(B, K, H, W) bool: slot i is component i + 1's mask."""
+        k = self.valid.shape[1]
+        ids = torch.arange(1, k + 1, dtype=torch.int32,
+                           device=self.labels.device)
+        return self.labels[:, None] == ids[None, :, None, None]
+
 
 def label_components_plain(mask: torch.Tensor) -> torch.Tensor:
     """K3's plain version: 3×3 neighbour-min restricted to the foreground,
@@ -94,11 +101,12 @@ def connected_components(mask: torch.Tensor,
     # components beyond max_ccs fall back to label 0
     roots = torch.topk(root_vals, max_ccs, dim=1, largest=False).values
     ids = torch.arange(1, max_ccs + 1, dtype=torch.int32, device=mask.device)
+    # the roots are distinct, so ``hit`` is the one-hot of ``labels``
     hit = (flat[:, None, :] == roots[:, :, None]) & (roots[:, :, None] < BIG)
     labels = (hit * ids[None, :, None]).sum(dim=1).to(torch.int32)
     labels = labels.reshape(b, h, w)
 
-    onehot = labels[:, None] == ids[None, :, None, None]      # (B, K, H, W)
+    onehot = hit.reshape(b, max_ccs, h, w)
     valid = onehot.flatten(2).any(dim=2)
     areas = onehot.flatten(2).sum(dim=2).to(torch.int32)
     ys = torch.arange(h, dtype=torch.int32, device=mask.device)[:, None]
@@ -120,21 +128,39 @@ def component_confidences(stats: ComponentStats, fg_probs: torch.Tensor,
     """Per-component confidence ``sum(fg_probs·(cc == j)) / (sum(pred) +
     1e-6)`` (reference util/utils.py:485-492).  fg_probs, pred (B, H, W);
     returns (B, K) float32, 0 on padded rows."""
-    k = stats.valid.shape[1]
-    ids = torch.arange(1, k + 1, dtype=torch.int32, device=pred.device)
-    onehot = stats.labels[:, None] == ids[None, :, None, None]
-    num = torch.where(onehot, fg_probs[:, None], 0.0).sum(dim=(2, 3))
+    num = torch.where(stats.onehot(), fg_probs[:, None], 0.0).sum(dim=(2, 3))
     den = pred.sum(dim=(1, 2))[:, None] + 1e-6
     return torch.where(stats.valid, num / den, 0.0)
 
 
-def keep_most_confident(stats: ComponentStats,
-                        conf: torch.Tensor) -> torch.Tensor:
-    """The reference's ``cca`` post-processing (util/utils.py:496-541; JAX
-    ``ops/cca.py:213``): per slice, the mask of the most confident
-    component, all False where there is none or its confidence is 0.
-    conf (B, K) -> (B, H, W) bool."""
-    best = torch.argmax(conf, dim=1)
-    any_conf = torch.amax(conf, dim=1) > 0
-    return ((stats.labels == (best + 1)[:, None, None])
-            & any_conf[:, None, None])
+def keep_most_confident(stats: ComponentStats, conf: torch.Tensor
+                        ) -> tuple[ComponentStats, torch.Tensor]:
+    """The reference's ``cca`` mode (util/utils.py:496-541; JAX
+    ``_keep_best_component``): per slice, the most confident component
+    alone, in one slot, or none where no confidence is positive.  conf
+    (B, K) -> (one-slot stats: labels 0/1, num and valid 0 where there is
+    none, areas, bboxes and centroids of the argmax row; its confidence
+    (B, 1), 0 where there is none)."""
+    best = torch.argmax(conf, dim=1)                           # (B,)
+    keep = torch.amax(conf, dim=1) > 0
+    rows = torch.arange(conf.shape[0], device=conf.device)
+    labels = ((stats.labels == (best + 1)[:, None, None])
+              & keep[:, None, None]).to(torch.int32)
+    take = lambda a: a[rows, best][:, None]
+    kept = ComponentStats(labels, keep.to(torch.int32), keep[:, None],
+                          take(stats.areas), take(stats.bboxes),
+                          take(stats.centroids))
+    return kept, take(conf) * keep[:, None]
+
+
+def components(pred: torch.Tensor, fg_probs: torch.Tensor, max_ccs: int,
+               best_only: bool) -> tuple[ComponentStats, torch.Tensor | None]:
+    """Which components of the coarse masks ``pred`` (B, H, W) become
+    prompts: all of the first ``max_ccs`` (confidence None), or with
+    ``best_only`` the most confident alone (``keep_most_confident``, its
+    confidence (B, 1) from ``fg_probs``)."""
+    stats = connected_components(pred, max_ccs)
+    if not best_only:
+        return stats, None
+    return keep_most_confident(stats,
+                               component_confidences(stats, fg_probs, pred))

@@ -45,18 +45,11 @@ def topk_points(prob: torch.Tensor, region: torch.Tensor,
     return xy, torch.cat(conf, dim=-1)
 
 
-def _onehot(stats: ComponentStats) -> torch.Tensor:
-    k = stats.valid.shape[1]
-    ids = torch.arange(1, k + 1, dtype=torch.int32,
-                       device=stats.labels.device)
-    return stats.labels[:, None] == ids[None, :, None, None]
-
-
 def component_points(fg_prob: torch.Tensor, stats: ComponentStats,
                      num_points: int, point_mode: str) -> PointPrompts:
     """Positive point prompts per component; point_mode 'conf' (top-k
     confident), 'centroid' or 'both' (reference POINT_MODES)."""
-    conf_xy, _ = topk_points(fg_prob[:, None], _onehot(stats), num_points)
+    conf_xy, _ = topk_points(fg_prob[:, None], stats.onehot(), num_points)
     cent_xy = stats.centroids[:, :, None, :]
     if point_mode == "conf":
         coords = conf_xy
@@ -78,7 +71,7 @@ def negative_points(bg_prob: torch.Tensor, stats: ComponentStats,
     """Per-component negative points on the dilation ring plus one global
     background point (reference models/ProtoSAM.py:361-366, 395-434).
     Returns (B, K, num_neg + 1, ...) with label 0 rows where valid."""
-    onehot = _onehot(stats).float()
+    onehot = stats.onehot().float()
     ring = dilate(onehot, kernel_size, dilation_iterations) - onehot
     ring_xy, ring_c = topk_points(bg_prob[:, None], ring, num_neg)
     glob_prob = torch.where(bg_prob >= 0.95, bg_prob, 0.0)

@@ -21,13 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from protosam_tpu_torch.ops.cca import (component_confidences,
-                                        connected_components)
 from protosam_tpu_torch.ops.resize import (resize_bilinear,
-                                           resize_bilinear_then_nearest,
-                                           resize_nearest)
-from protosam_tpu_torch.pipeline.protosam import (ProtoSAM, ProtoSAMConfig,
-                                                  _keep_best_component)
+                                           resize_bilinear_then_nearest)
+from protosam_tpu_torch.pipeline.protosam import ProtoSAM, ProtoSAMConfig
 
 
 class ProtoMedSAM(ProtoSAM):
@@ -41,30 +37,17 @@ class ProtoMedSAM(ProtoSAM):
 
     def _extract_prompts(self, qrys, logits):
         """Box prompts and the [0, 1] MedSAM input for B slices."""
-        cfg = self.config
-        qimg = resize_bilinear(qrys, cfg.image_size)
-        probs = torch.softmax(resize_bilinear(logits.float(),
-                                              cfg.image_size), dim=1)
-        pred = torch.argmax(probs, dim=1).float()              # (B, H, W)
-
-        stats = connected_components(pred, cfg.max_ccs)
-        conf = component_confidences(stats, probs[:, 1], pred)
-        if cfg.use_cca:
-            stats, conf = _keep_best_component(stats, conf)
-        # boxes are already in the SAM frame (reference :199-202)
-        boxes, valid = stats.bboxes.float(), stats.valid
-        if cfg.use_cca:
-            boxes, valid = boxes[:, :1], valid[:, :1]
-        b, k = valid.shape
-
+        qimg, _, pred, stats = self._coarse_components(qrys, logits)
+        b, k = stats.valid.shape
         lo = qimg.amin(dim=(1, 2, 3), keepdim=True)
         hi = qimg.amax(dim=(1, 2, 3), keepdim=True)
+        # boxes are already in the SAM frame (reference :199-202)
         return {"sam_image": (qimg - lo) / (hi - lo),
                 "coords": qimg.new_zeros((b, k, 0, 2)),
                 "labels": torch.zeros((b, k, 0), dtype=torch.int32,
                                       device=qimg.device),
-                "boxes": boxes, "valid": valid, "pred": pred,
-                "mask_inputs": None}
+                "boxes": stats.bboxes.float(), "valid": stats.valid,
+                "pred": pred, "mask_inputs": None}
 
     def _decode_stage(self, emb, coords, labels, boxes, valid, pred,
                       original_size, mask_inputs=None):
@@ -81,14 +64,8 @@ class ProtoMedSAM(ProtoSAM):
                                                    *low_res.shape[-2:]))
         up = resize_bilinear_then_nearest(prob, cfg.image_size,
                                           original_size)
-        seg = ((up > 0.5) & valid[:, :, None, None]).any(dim=1).float()
-
-        empty = torch.amax(pred, dim=(1, 2)) == 0
-        out = torch.where(empty[:, None, None],
-                          resize_nearest(pred, original_size), seg)
-        scores = torch.where(empty[:, None], 0.0,
-                             iou[:, 0].reshape(b, k) * valid)
-        return out, scores
+        return self._compose(up > 0.5, iou[:, 0].reshape(b, k), valid, pred,
+                             original_size)
 
     @torch.no_grad()
     def segment_all(self, query_image: torch.Tensor, query_label=None):

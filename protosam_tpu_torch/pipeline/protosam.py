@@ -31,9 +31,7 @@ from protosam_tpu_torch.models.io_protocol import (ALPNetInput, BOTH_MODE,
                                                    POINT_MODES)
 from protosam_tpu_torch.models.sam.sam import preprocess as sam_preprocess
 from protosam_tpu_torch.ops import launch_counts
-from protosam_tpu_torch.ops.cca import (ComponentStats,
-                                        component_confidences,
-                                        connected_components)
+from protosam_tpu_torch.ops.cca import components
 from protosam_tpu_torch.ops.prompts import build_sam_prompts
 from protosam_tpu_torch.ops.resize import (resize_bilinear,
                                            resize_bilinear_then_nearest,
@@ -68,33 +66,6 @@ class ProtoSAMConfig:
             raise ValueError(f"point mode must be one of {POINT_MODES}")
         if not (self.use_bbox or self.use_points or self.use_mask):
             raise ValueError("must use at least one of bbox, points, or mask")
-
-
-def _keep_best_component(stats: ComponentStats, conf: torch.Tensor
-                         ) -> tuple[ComponentStats, torch.Tensor]:
-    """'cca' mode (reference util/utils.py:496-541): per slice, reduce the
-    component set to the most confident one (slot 0), or none if the best
-    confidence is 0.  conf (B, K)."""
-    b, k = conf.shape
-    best = torch.argmax(conf, dim=1)                           # (B,)
-    any_conf = torch.amax(conf, dim=1) > 0
-    sel = (torch.arange(k, device=conf.device) == 0)[None]     # (1, K)
-    labels = ((stats.labels == (best + 1)[:, None, None])
-              & any_conf[:, None, None]).to(torch.int32)
-    rows = torch.arange(b, device=conf.device)
-
-    def take(a):
-        shape = (b, k) + (1,) * (a.ndim - 2)
-        return torch.where(sel.reshape((1, k) + shape[2:]),
-                           a[rows, best][:, None], torch.zeros_like(a))
-
-    new = ComponentStats(
-        labels=labels, num=any_conf.to(torch.int32),
-        valid=sel & any_conf[:, None], areas=take(stats.areas),
-        bboxes=take(stats.bboxes), centroids=take(stats.centroids))
-    new_conf = torch.where(sel, conf[rows, best][:, None], 0.0) \
-        * any_conf[:, None]
-    return new, new_conf
 
 
 def _confidence_from_logits(logits: torch.Tensor) -> torch.Tensor:
@@ -143,16 +114,12 @@ class ProtoSAM:
         cfg = self.config
         original_size = tuple(qrys.shape[-2:])
         if cfg.coarse_pred_only:
-            pred = torch.argmax(logits, dim=1)
-            conf = _confidence_from_logits(logits)
-            if cfg.use_cca:
-                probs = torch.softmax(logits, dim=1)
-                stats = connected_components(pred.float(), cfg.max_ccs)
-                c = component_confidences(stats, probs[:, 1], pred.float())
-                stats, c = _keep_best_component(stats, c)
-                pred = (stats.labels > 0) * pred
-                conf = torch.amax(c, dim=1)
-            return pred.float(), conf[:, None]
+            pred = torch.argmax(logits, dim=1).float()
+            if not cfg.use_cca:
+                return pred, _confidence_from_logits(logits)[:, None]
+            stats, conf = components(pred, torch.softmax(logits, dim=1)[:, 1],
+                                     cfg.max_ccs, True)
+            return (stats.labels > 0) * pred, conf
         dev, b = qrys.device, qrys.shape[0]
         with profiling.span("pipeline.prompts", device=dev, batch=b):
             ex = self._extract_prompts(qrys, logits)
@@ -163,28 +130,26 @@ class ProtoSAM:
                 emb, ex["coords"], ex["labels"], ex["boxes"], ex["valid"],
                 ex["pred"], original_size, mask_inputs=ex["mask_inputs"])
 
-    def _extract_prompts(self, qrys, logits):
-        """Device-side prompt extraction for B slices: coarse logits ->
-        CCA -> points/boxes, plus the preprocessed SAM input images."""
+    def _coarse_components(self, qrys, logits):
+        """The front both pipelines share, for B slices: the queries and
+        the coarse logits in the SAM frame, the softmax, its argmax and the
+        components that become prompts ('cca' mode: the most confident
+        one).  Returns (qimg, probs, pred (B, H, W), stats)."""
         cfg = self.config
         qimg = resize_bilinear(qrys, cfg.image_size)
         # f32 logit upsample + softmax + argmax: the argmax seeds CCA and
         # every prompt, so its precision decides mask boundaries
         probs = torch.softmax(resize_bilinear(logits.float(),
                                               cfg.image_size), dim=1)
-        pred = torch.argmax(probs, dim=1).float()              # (B, H, W)
+        pred = torch.argmax(probs, dim=1).float()
+        stats, _ = components(pred, probs[:, 1], cfg.max_ccs, cfg.use_cca)
+        return qimg, probs, pred, stats
 
-        stats = connected_components(pred, cfg.max_ccs)
-        conf = component_confidences(stats, probs[:, 1], pred)
-        if cfg.use_cca:
-            # one component at slot 0: shrink the stats to one row before
-            # prompt extraction so the per-component work runs once
-            stats, conf = _keep_best_component(stats, conf)
-            stats = ComponentStats(
-                labels=stats.labels, num=stats.num, valid=stats.valid[:, :1],
-                areas=stats.areas[:, :1], bboxes=stats.bboxes[:, :1],
-                centroids=stats.centroids[:, :1])
-
+    def _extract_prompts(self, qrys, logits):
+        """Device-side prompt extraction for B slices: coarse logits ->
+        CCA -> points/boxes, plus the preprocessed SAM input images."""
+        cfg = self.config
+        qimg, probs, pred, stats = self._coarse_components(qrys, logits)
         b, k = stats.valid.shape
         if cfg.use_points:
             pts = build_sam_prompts(
@@ -205,10 +170,7 @@ class ProtoSAM:
             # bg -> 248 with mask_prompt_uint8_wrap, as its uint8 cast gives
             side = 4 * (self.sam_model.image_size
                         // self.sam_model.vit_patch_size)
-            ids = torch.arange(1, k + 1, dtype=torch.int32,
-                               device=pred.device)
-            onehot = (stats.labels[:, None] == ids[None, :, None, None])
-            low = resize_nearest(onehot.float(), (side, side))
+            low = resize_nearest(stats.onehot().float(), (side, side))
             bg_fill = 248.0 if cfg.mask_prompt_uint8_wrap else -8.0
             mask_inputs = torch.where(low > 0.5, 10.0, bg_fill)[:, :, None]
 
@@ -260,13 +222,19 @@ class ProtoSAM:
         # reference drives), then nearest to the query frame, composed
         size = (self.sam_model.image_size,) * 2
         masks = resize_bilinear_then_nearest(masks_low, size, original_size)
-        summed = ((masks > 0.0) & valid[:, :, None, None]).any(dim=1).float()
-        # an empty coarse prediction returns the coarse argmax (:612-613)
+        return self._compose(masks > 0.0, scores, valid, pred, original_size)
+
+    @staticmethod
+    def _compose(fg, scores, valid, pred, original_size):
+        """The tail both pipelines share: the components' masks ``fg``
+        (B, K, H, W) bool OR-ed over the valid ones, with their scores
+        (B, K); a slice whose coarse prediction ``pred`` is empty returns
+        it, resized to the query, with scores 0 (reference :612-613)."""
+        seg = (fg & valid[:, :, None, None]).any(dim=1).float()
         empty = torch.amax(pred, dim=(1, 2)) == 0
-        pred_out = resize_nearest(pred, original_size)
-        out = torch.where(empty[:, None, None], pred_out, summed)
-        scores = torch.where(empty[:, None], 0.0, scores * valid)
-        return out, scores
+        out = torch.where(empty[:, None, None],
+                          resize_nearest(pred, original_size), seg)
+        return out, torch.where(empty[:, None], 0.0, scores * valid)
 
     def forward_volume(self, queries: torch.Tensor,
                        coarse_model_input: ALPNetInput,

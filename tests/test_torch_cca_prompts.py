@@ -4,6 +4,8 @@ equal.  The ``cuda`` tests hold kernel K3 to its plain version bit for
 bit, and a rerun to the first run: K3 is a tiled union-find whose tile
 borders, tile corners and long chains the mask classes below aim at."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -20,9 +22,11 @@ except ImportError:
     pass
 
 from protosam_tpu_torch.entry import set_f32_precision
+from protosam_tpu_torch.eval.alpnet_eval import coarse_predict
 from protosam_tpu_torch.ops import cca as tcca
 from protosam_tpu_torch.ops import prompts as tprompts
-from protosam_tpu_torch.pipeline.protosam import _keep_best_component
+from protosam_tpu_torch.pipeline.protomedsam import ProtoMedSAM
+from protosam_tpu_torch.pipeline.protosam import ProtoSAM, ProtoSAMConfig
 
 torch.set_num_threads(2)
 
@@ -188,20 +192,100 @@ def test_topk_tie_order_matches_jax():
 
 
 def test_keep_best_component_matches_jax():
+    """``keep_most_confident`` keeps JAX's ``_keep_best_component`` in one
+    slot: its slot 0, label map and count, and nothing in its other slots.
+    Slice 1 has components but no positive confidence."""
     masks = mask_batch(seed=6).astype(np.float32)
     probs = np.random.default_rng(6).random(masks.shape).astype(np.float32)
     stats = tcca.connected_components(torch.from_numpy(masks), 4)
     conf = tcca.component_confidences(stats, torch.from_numpy(probs),
                                       torch.from_numpy(masks))
-    got, got_conf = _keep_best_component(stats, conf)
+    conf[1] = 0.0
+    got, got_conf = tcca.keep_most_confident(stats, conf)
+    assert got.valid.shape == got_conf.shape == (len(masks), 1)
     for i, js in enumerate(jax_stats(masks, 4)):
         want, want_conf = j_keep_best(js, jnp.asarray(conf[i].numpy()))
         for field in tcca.ComponentStats._fields:
-            np.testing.assert_array_equal(
-                getattr(got, field)[i].numpy(),
-                np.asarray(getattr(want, field)), err_msg=field)
-        np.testing.assert_array_equal(got_conf[i].numpy(),
-                                      np.asarray(want_conf))
+            w = np.asarray(getattr(want, field))
+            if field not in ("labels", "num"):
+                assert not w[1:].any(), field
+                w = w[:1]
+            np.testing.assert_array_equal(getattr(got, field)[i].numpy(), w,
+                                          err_msg=field)
+        want_conf = np.asarray(want_conf)
+        assert not want_conf[1:].any()
+        np.testing.assert_array_equal(got_conf[i].numpy(), want_conf[:1])
+
+
+def _blob_logits(size, blobs):
+    """(1, 2, H, W) coarse logits: background everywhere but the blobs
+    (y0, x0, y1, x1, fg logit), whose fg probability is sigmoid(logit)."""
+    fg = np.full((size, size), -8.0, np.float32)
+    for y0, x0, y1, x1, v in blobs:
+        fg[y0:y1, x0:x1] = v
+    return torch.from_numpy(np.stack([np.zeros_like(fg), fg])[None])
+
+
+# (blobs, the kept one's index or None); a logit of 40 gives probability 1.0
+# exactly, so equal areas give equal confidences
+KEEP_CASES = {
+    # the confidence is a sum: the wide blob of probability 0.62 beats two
+    # earlier ones of probability 1
+    "several": ([(2, 2, 6, 6, 40.0), (3, 20, 6, 23, 40.0),
+                 (14, 8, 20, 14, 0.5)], 2),
+    "tie-first-wins": ([(3, 4, 7, 8, 40.0), (18, 16, 22, 20, 40.0)], 0),
+    "empty": ([], None),
+    "zero-confidence": ([(5, 5, 12, 12, 40.0)], None),
+}
+
+
+@pytest.mark.parametrize("case", list(KEEP_CASES))
+def test_every_cca_path_keeps_the_same_component(case, monkeypatch):
+    """The same coarse logits, in the SAM frame so that no path resamples
+    them, through ProtoSAM's and ProtoMedSAM's prompts in 'cca' mode, the
+    coarse-only pipeline and the ALPNet eval's ``coarse_predict``: each
+    keeps the expected component, or none.  Consistent logits cannot give
+    a component of confidence 0, so that case forces it at the rule."""
+    blobs, best = KEEP_CASES[case]
+    if case == "zero-confidence":
+        monkeypatch.setattr(tcca, "component_confidences",
+                            lambda stats, fg, pred: torch.zeros(
+                                stats.valid.shape))
+    size = 32
+    logits = _blob_logits(size, blobs)
+    want = torch.zeros((1, size, size))
+    if best is not None:
+        y0, x0, y1, x1, _ = blobs[best]
+        want[0, y0:y1, x0:x1] = 1.0
+    keep = want.flatten(1).any(dim=1)[:, None]
+    qrys = torch.rand((1, 3, size, size), generator=torch.Generator()
+                      .manual_seed(0))
+    coarse = lambda *args, **kwargs: {"logits": logits}
+    sam = types.SimpleNamespace(image_size=size)
+    cfg = dict(image_size=(size, size), max_ccs=4, use_cca=True)
+
+    ex = ProtoSAM(coarse, sam, ProtoSAMConfig(**cfg))._extract_prompts(
+        qrys, logits)
+    med = ProtoMedSAM(coarse, sam, ProtoSAMConfig(
+        use_points=False, use_bbox=True, **cfg))._extract_prompts(qrys,
+                                                                  logits)
+    for prompts in (ex, med):
+        assert torch.equal(prompts["valid"], keep)
+        assert prompts["boxes"].shape == (1, 1, 4)
+    assert torch.equal(ex["boxes"], med["boxes"])
+    if best is not None:
+        assert ex["boxes"][0, 0].tolist() == [x0, y0, x1 - 1, y1 - 1]
+        # point_mode 'both': the kept component's centroid is point 1
+        assert ex["coords"][0, 0, 1].tolist() == [(x0 + x1 - 1) / 2,
+                                                  (y0 + y1 - 1) / 2]
+
+    pred, conf = ProtoSAM(coarse, sam, ProtoSAMConfig(
+        coarse_pred_only=True, **cfg))._forward_core(None, None, None, qrys,
+                                                      None)
+    assert torch.equal(pred, want)
+    assert torch.equal(conf > 0, keep)
+    got = coarse_predict(coarse, None, None, None, qrys, 2, True, 4, 4)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
