@@ -10,13 +10,21 @@ the packed qkv projection; the block LayerNorms run on kernel K1.
 ``quant_dense`` makes the blocks' qkv, proj and FFN layers int8 layers
 (``ops/quant.QuantLinear``, kernels K8 and K9), JAX ``vit.py:50-64,111-130``.
 
+The position encoding resized to a grid depends only on ``pos_embed``, the
+grid and the compute dtype, so each encoder keeps it per grid, dtype and
+device, tied to the weight it came from (``_pos_encoding``).
+
 Traced (``utils/profiling.py``): ``dinov2.encode`` around a forward pass,
-counting its ``images``, ``tokens`` (the padded sequence times the images)
-and ``blocks``, and ``dinov2.ffn`` around each block's FFN.
+counting its ``images``, ``tokens`` (the padded sequence times the images),
+``blocks`` and ``pos_builds`` (1 where the call resized the position
+encoding, 0 where the encoder's cache served it), and ``dinov2.ffn`` around
+each block's FFN.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Any
 
 import torch
@@ -29,6 +37,12 @@ from protosam_tpu_torch.ops.attention import masked_flash_attention_packed
 from protosam_tpu_torch.ops.quant import dense_cls
 from protosam_tpu_torch.ops.resize import resize_bicubic_torch
 from protosam_tpu_torch.utils import profiling
+
+# resized position encodings kept per encoder: one a grid, dtype and device
+# (a few MB each at published widths); tools that sweep input sizes cannot
+# grow it without limit
+POS_CACHE_SIZE = 8
+_pos_lock = threading.Lock()  # serve.py answers each request on a thread
 
 
 class Attention(nn.Module):
@@ -126,6 +140,9 @@ class DinoVisionTransformer(nn.Module):
     # left f32 by ``cast_compute``: JAX resizes the f32 param (vit.py:
     # 176-183, 245-247) and casts the result
     f32_params = ("pos_embed",)
+    # forwards that resized the position encoding, over every encoder (the
+    # others were served from their encoder's cache)
+    pos_builds = 0
 
     def __init__(self, patch_size: int = 14, embed_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16,
@@ -158,6 +175,8 @@ class DinoVisionTransformer(nn.Module):
         # f32 even under a bf16 build: it feeds the ALP cosine match whose
         # argmax seeds CCA and every SAM prompt (the f32 coarse tail)
         self.norm = TokenLayerNorm(embed_dim, 1e-6, out_dtype=torch.float32)
+        # a plain attribute, not a buffer: no state_dict or cast sees it
+        self._pos_cache: collections.OrderedDict = collections.OrderedDict()
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (B, 3, H, W), H/W divisible by the patch size.  Returns
@@ -170,7 +189,8 @@ class DinoVisionTransformer(nn.Module):
             dt = self.compute_dtype or self.patch_embed.proj.weight.dtype
             x = self.patch_embed.proj(x.to(dt)).flatten(2).transpose(1, 2)
             x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
-            x = x + self._interpolate_pos_encoding(gh, gw).to(dt)
+            pos, enc.attrs["pos_builds"] = self._pos_encoding(gh, gw, dt)
+            x = x + pos
             if self.num_register_tokens:
                 x = torch.cat([x[:, :1],
                                self.register_tokens.to(dt).expand(b, -1, -1),
@@ -190,6 +210,42 @@ class DinoVisionTransformer(nn.Module):
         return {"x_norm_clstoken": x[:, 0],
                 "x_norm_regtokens": x[:, 1:1 + r],
                 "x_norm_patchtokens": x[:, 1 + r:]}
+
+    def _pos_encoding(self, gh: int, gw: int,
+                      dt: torch.dtype) -> tuple[torch.Tensor, int]:
+        """``_interpolate_pos_encoding(gh, gw).to(dt)``, and 1 where this
+        call computed it, 0 where the cache served it.  An entry holds the
+        weight it was built from: a new ``pos_embed`` (a load, a cast, a
+        move, a copy) moves its id or pointer and an in-place step its
+        ``_version``, and either builds the entry anew; the source's
+        storage stays alive with the entry, so its address cannot come back
+        as another weight's.  Computed on every call where autograd tracks
+        ``pos_embed`` (training), and for an inference tensor, whose
+        in-place writes move no ``_version``."""
+        pe = self.pos_embed
+        if (torch.is_grad_enabled() and pe.requires_grad) or \
+                pe.is_inference():
+            with _pos_lock:
+                DinoVisionTransformer.pos_builds += 1
+            return self._interpolate_pos_encoding(gh, gw).to(dt), 1
+        slot = (gh, gw, dt, pe.device)
+        weight = (id(pe), pe.data_ptr(), pe._version, pe.dtype, pe.shape)
+        with _pos_lock:
+            hit = self._pos_cache.get(slot)
+            if hit is not None and hit[0] == weight:
+                self._pos_cache.move_to_end(slot)
+                return hit[2], 0
+        # a plain tensor even when first built under inference_mode, so that
+        # a later grad-enabled call on a frozen encoder may use it
+        with torch.inference_mode(False), torch.no_grad():
+            pos = self._interpolate_pos_encoding(gh, gw).to(dt)
+        with _pos_lock:
+            DinoVisionTransformer.pos_builds += 1
+            self._pos_cache[slot] = (weight, pe.detach(), pos)
+            self._pos_cache.move_to_end(slot)
+            while len(self._pos_cache) > POS_CACHE_SIZE:
+                self._pos_cache.popitem(last=False)
+        return pos, 1
 
     def _interpolate_pos_encoding(self, gh: int, gw: int) -> torch.Tensor:
         """Torch bicubic resize of the pretrain pos-embed grid to (gh, gw),

@@ -433,10 +433,12 @@ def test_pipeline_profile_instruments_the_five_stages():
                       "pipeline.sam_encoder": 2, "pipeline.decode": 2,
                       "dinov2.encode": 3, "dinov2.ffn": 6}
     # the support image and two batches of two, 9² patches and the cls
-    # token each, two blocks a call
+    # token each, two blocks a call; the warm call resizes no position
+    # encoding
     assert stages["dinov2.encode"]["counts"] == {"images": 5,
                                                  "tokens": 5 * 82,
-                                                 "blocks": 6}
+                                                 "blocks": 6,
+                                                 "pos_builds": 0}
     volume = stages.pop("pipeline.volume")
     assert sum(v["total_ms"] for k, v in stages.items()
                if k.startswith("pipeline.")) == pytest.approx(
