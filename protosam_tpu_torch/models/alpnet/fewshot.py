@@ -20,7 +20,8 @@ import math
 import torch
 from torch import nn
 
-from protosam_tpu_torch.models.backbones.resnet import DeeplabRes101Encoder
+from protosam_tpu_torch.models.backbones.resnet import (
+    PUBLISHED_LAYERS, PUBLISHED_WIDTHS, DeeplabRes101Encoder)
 from protosam_tpu_torch.models.dinov2.vit import build_dinov2
 from protosam_tpu_torch.ops.alp import alp_score, fg_score_with_fallback
 from protosam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
@@ -29,10 +30,17 @@ DEFAULT_FEATURE_SIZE = 32  # reference util/consts.py:2
 FG_THRESH = 0.95           # reference grid_proto_fewshot.py:21-22
 BG_THRESH = 0.95
 
-_RESNET = ("dlfcn_res101", "default")
+# (layers, widths) of each ResNet name; ``dlfcn_res_t`` is a test-size
+# variant (every dilation of the published trunk, an eighth of its widths)
+_RESNET = {
+    "dlfcn_res101": (PUBLISHED_LAYERS, PUBLISHED_WIDTHS),
+    "default": (PUBLISHED_LAYERS, PUBLISHED_WIDTHS),
+    "dlfcn_res_t": ((1, 1, 2, 2), (8, 16, 32, 64)),
+}
 _ENCODER_ALIASES = {
     "dlfcn_res101": "dlfcn_res101",
     "default": "dlfcn_res101",
+    "dlfcn_res_t": "dlfcn_res_t",
     "dinov2_l14": "dinov2_vitl14",
     "dinov2_l14_reg": "dinov2_vitl14_reg",
     "dinov2_b14": "dinov2_vitb14",
@@ -56,7 +64,7 @@ class FewShotSeg(nn.Module):
         self.proto_grid_size = proto_grid_size
         self.use_fused_alp = use_fused_alp
         if which_model in _RESNET:
-            self.encoder = DeeplabRes101Encoder()
+            self.encoder = DeeplabRes101Encoder(*_RESNET[which_model])
         else:
             self.encoder = build_dinov2(_ENCODER_ALIASES[which_model],
                                         quant_dense=quant_dense)

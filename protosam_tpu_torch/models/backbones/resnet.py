@@ -12,6 +12,16 @@ eps))``.  As in JAX, its four vectors are parameters (flax params), so a
 training step moves them; ``num_batches_tracked`` is not kept.  The
 convolutions are cuDNN's on the card: JAX computes them outside any Pallas
 kernel.
+
+``widths`` and ``layers`` are the published (64, 128, 256, 512) and (3, 4,
+23, 3) unless a test-size variant (``models/alpnet/fewshot.py``) asks for
+others; the stem is ``widths[0]`` wide, as torchvision's 64.
+
+Traced (``utils/profiling.py``): ``resnet.encode`` around a forward pass,
+counting its ``images``, ``convs`` (the convolutions it launches, 105 at
+the published depth) and ``feature_hw`` (the side of its output grid), and
+``resnet.stage`` around the stem (through the max-pool), each of layer1-4
+and the localconv, its ``stage`` named.
 """
 
 from __future__ import annotations
@@ -21,6 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from protosam_tpu_torch.models.master import Conv2d
+from protosam_tpu_torch.utils import profiling
+
+PUBLISHED_LAYERS = (3, 4, 23, 3)
+PUBLISHED_WIDTHS = (64, 128, 256, 512)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -72,17 +86,18 @@ class ResNetTrunk(nn.Module):
     """torchvision ResNet's stem and layer1-4 (the keys of its
     IntermediateLayerGetter), dilated from layer3 on."""
 
-    def __init__(self, layers: tuple = (3, 4, 23, 3)):
+    def __init__(self, layers: tuple = PUBLISHED_LAYERS,
+                 widths: tuple = PUBLISHED_WIDTHS):
         super().__init__()
-        self.conv1 = _conv(3, 64, 7, stride=2)
-        self.bn1 = FrozenBatchNorm(64)
+        cin = widths[0]
+        self.conv1 = _conv(3, cin, 7, stride=2)
+        self.bn1 = FrozenBatchNorm(cin)
         # (planes, blocks, stride, dilations): layer3/4 keep stride 1 and
         # dilate; each first block keeps the previous dilation
-        specs = [(64, layers[0], 1, [1] * layers[0]),
-                 (128, layers[1], 2, [1] * layers[1]),
-                 (256, layers[2], 1, [1] + [2] * (layers[2] - 1)),
-                 (512, layers[3], 1, [2] + [4] * (layers[3] - 1))]
-        cin = 64
+        specs = [(widths[0], layers[0], 1, [1] * layers[0]),
+                 (widths[1], layers[1], 2, [1] * layers[1]),
+                 (widths[2], layers[2], 1, [1] + [2] * (layers[2] - 1)),
+                 (widths[3], layers[3], 1, [2] + [4] * (layers[3] - 1))]
         for li, (planes, blocks, stride, dils) in enumerate(specs, start=1):
             blks = []
             for bi in range(blocks):
@@ -93,10 +108,14 @@ class ResNetTrunk(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*blks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        dev = x.device
+        with profiling.span("resnet.stage", device=dev, stage="stem"):
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
         for li in range(1, 5):
-            x = getattr(self, f"layer{li}")(x)
+            with profiling.span("resnet.stage", device=dev,
+                                stage=f"layer{li}"):
+                x = getattr(self, f"layer{li}")(x)
         return x
 
 
@@ -106,11 +125,21 @@ class DeeplabRes101Encoder(nn.Module):
 
     compute_dtype: torch.dtype | None = None
 
-    def __init__(self, layers: tuple = (3, 4, 23, 3)):
+    def __init__(self, layers: tuple = PUBLISHED_LAYERS,
+                 widths: tuple = PUBLISHED_WIDTHS):
         super().__init__()
-        self.backbone = ResNetTrunk(layers)
-        self.localconv = _conv(2048, 256, 1)
+        self.backbone = ResNetTrunk(layers, widths)
+        self.localconv = _conv(widths[3] * 4, 256, 1)
+        self.convs = sum(isinstance(m, nn.Conv2d) for m in self.modules())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype or self.localconv.weight.dtype
-        return self.localconv(self.backbone(x.to(dt)))
+        dev = x.device
+        with profiling.span("resnet.encode", device=dev, images=x.shape[0],
+                            convs=self.convs) as enc:
+            dt = self.compute_dtype or self.localconv.weight.dtype
+            y = self.backbone(x.to(dt))
+            with profiling.span("resnet.stage", device=dev,
+                                stage="localconv"):
+                y = self.localconv(y)
+            enc.attrs["feature_hw"] = y.shape[-1]
+        return y

@@ -19,7 +19,8 @@ counts the math the card runs: QKᵀ + PV over the real keys (DINOv2: every
 padded query row against the ``n_valid`` real keys), plus, for SAM, the
 einsums that build the compact rel-pos bias.  The JAX tool counted the TPU
 kernels' augmented contraction lanes (K = hd + H + W) instead, so its
-attention counts are larger.
+attention counts are larger.  ``dino_flops`` of the DeepLab ResNet-101
+(``dlfcn_res101``) is ``resnet_flops``: its convolutions by stage.
 
 ``kernel_cost(name, **shapes)`` gives each kernel's (flops, bytes,
 bound_ms, bound_by): bytes count each input read once and each output
@@ -36,6 +37,8 @@ from __future__ import annotations
 
 import argparse
 
+from protosam_tpu_torch.models.backbones.resnet import (PUBLISHED_LAYERS,
+                                                         PUBLISHED_WIDTHS)
 from protosam_tpu_torch.models.dinov2.vit import FFNS
 
 PEAK_BF16 = 989e12   # FLOP/s, tensor cores, dense
@@ -66,7 +69,42 @@ def dino_seq(n_tokens: int) -> int:
     return n_tokens + ((-n_tokens) % 128 if n_tokens >= 2048 else 0)
 
 
+RESNET_CFG = {"dlfcn_res101": (PUBLISHED_LAYERS, PUBLISHED_WIDTHS)}
+
+
+def resnet_flops(name: str, image_size: int) -> dict[str, float]:
+    """The dilated ResNet's convolutions on one image, 2 FLOP a
+    multiply-add, by stage (``models/backbones/resnet.py``: the stem and
+    max-pool halve the side twice, layer2 once; layer3 and layer4 dilate);
+    BatchNorm, ReLU and the residual adds are not counted."""
+    layers, widths = RESNET_CFG[name]
+
+    def conv(side, cin, cout, k):
+        return 2 * side * side * cin * cout * k * k
+
+    side = -(-image_size // 2)
+    out = {"resnet stem": float(conv(side, 3, widths[0], 7))}
+    side, cin = -(-side // 2), widths[0]
+    for li, (n, planes) in enumerate(zip(layers, widths), start=1):
+        stride = 2 if li == 2 else 1
+        below, f = -(-side // stride), 0
+        for bi in range(n):
+            f += (conv(side if bi == 0 else below, cin, planes, 1)
+                  + conv(below, planes, planes, 3)
+                  + conv(below, planes, 4 * planes, 1))
+            if bi == 0 and (stride != 1 or cin != 4 * planes):
+                f += conv(below, cin, 4 * planes, 1)
+            cin = 4 * planes
+        out[f"resnet layer{li}"] = float(f)
+        side = below
+    out["resnet localconv"] = float(conv(side, cin, 256, 1))
+    return out
+
+
 def dino_flops(name: str, image_size: int) -> dict[str, float]:
+    """The coarse encoder's FLOP on one image by stage."""
+    if name in RESNET_CFG:
+        return resnet_flops(name, image_size)
     c, depth, heads, mlp, ffn = DINO_CFG[name]
     hd = c // heads
     grid = image_size // 14
