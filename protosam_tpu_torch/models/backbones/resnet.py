@@ -21,7 +21,18 @@ Traced (``utils/profiling.py``): ``resnet.encode`` around a forward pass,
 counting its ``images``, ``convs`` (the convolutions it launches, 105 at
 the published depth) and ``feature_hw`` (the side of its output grid), and
 ``resnet.stage`` around the stem (through the max-pool), each of layer1-4
-and the localconv, its ``stage`` named.
+and the localconv, its ``stage`` named.  ``bn_folds`` on ``resnet.encode``
+counts the BatchNorms the call folded into their convolutions (104 at the
+published depth after a load, a cast or a step; 0 once warm).
+
+Inference folds each BatchNorm into the convolution before it
+(``FrozenBatchNorm.fold``): the weights scaled by ``w/√(var+eps)`` and the
+shift as a bias, computed in float32 and rounded to the compute dtype once,
+then kept until the weights change.  On the card cuDNN's fused entries add
+the bias, the residual and the ReLU in the convolution's epilogue.  Where
+autograd tracks a parameter of the pair (the master-weights training
+build), the convolution and ``FrozenBatchNorm.forward`` run apart, so a
+step moves the BatchNorm's vectors.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.running_mean = nn.Parameter(torch.zeros(c))
         self.running_var = nn.Parameter(torch.ones(c))
+        self._fold = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         std = torch.sqrt(self.running_var + self.eps)
@@ -53,11 +65,75 @@ class FrozenBatchNorm(nn.Module):
             x.dtype)
         return x * scale[:, None, None] + shift[:, None, None]
 
+    def fold(self, conv: Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
+        """``conv``'s weight scaled by this BatchNorm and its shift, the
+        pair's weight and bias in ``conv``'s compute dtype.  Kept with the
+        ids, pointers, ``_version``s, dtypes and shapes of the five tensors
+        it was built from, and ``eps``, the dtype and the device: a load, a
+        cast, a move or an in-place step builds it anew, and the sources'
+        storage stays alive with it, so an address cannot come back as
+        another weight's.  Each build counts ``bn_folds`` on the open
+        spans.  Built on every call for inference tensors, whose in-place
+        writes move no ``_version``."""
+        dt = conv.compute_dtype or conv.weight.dtype
+        srcs = (conv.weight, self.weight, self.bias, self.running_mean,
+                self.running_var)
+        if any(t.is_inference() for t in srcs):
+            profiling.count("bn_folds", 1)
+            return self._folded(conv.weight, dt)
+        key = (self.eps, dt, conv.weight.device,
+               *((id(t), t.data_ptr(), t._version, t.dtype, t.shape)
+                 for t in srcs))
+        hit = self._fold
+        if hit is not None and hit[0] == key:
+            return hit[2], hit[3]
+        # plain tensors even when first built under inference_mode
+        with torch.inference_mode(False), torch.no_grad():
+            w, b = self._folded(conv.weight, dt)
+        self._fold = (key, tuple(t.detach() for t in srcs), w, b)
+        profiling.count("bn_folds", 1)
+        return w, b
+
+    def _folded(self, w: torch.Tensor,
+                dt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        scale = self.weight.float() / torch.sqrt(self.running_var.float()
+                                                 + self.eps)
+        shift = self.bias.float() - self.running_mean.float() * scale
+        return (w.float() * scale[:, None, None, None]).to(dt), shift.to(dt)
+
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
           dilation: int = 1) -> Conv2d:
     return Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2),
                   dilation=dilation, bias=False)
+
+
+def _conv_bn(conv: Conv2d, bn: FrozenBatchNorm, x: torch.Tensor,
+             residual: torch.Tensor | None = None,
+             relu: bool = True) -> torch.Tensor:
+    """``bn(conv(x))``, plus ``residual`` where given, then a ReLU where
+    ``relu``.  Where autograd tracks none of the pair's parameters and
+    inputs, one convolution with ``bn`` folded into it; on the card the
+    bias, the residual and the ReLU in cuDNN's epilogue."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, residual, conv.weight, bn.weight, bn.bias,
+                      bn.running_mean, bn.running_var)):
+        y = bn(conv(x))
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+    w, b = bn.fold(conv)
+    geom = (conv.stride, conv.padding, conv.dilation, conv.groups)
+    if x.is_cuda and relu:
+        if residual is None:
+            return torch.cudnn_convolution_relu(x, w, b, *geom)
+        return torch.cudnn_convolution_add_relu(x, w, residual, 1.0, b,
+                                                *geom)
+    y = F.conv2d(x, w, b, *geom)
+    if residual is not None:
+        y += residual
+    return F.relu_(y) if relu else y
 
 
 class Bottleneck(nn.Module):
@@ -75,11 +151,11 @@ class Bottleneck(nn.Module):
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        out = _conv_bn(self.conv1, self.bn1, x)
+        out = _conv_bn(self.conv2, self.bn2, out)
+        identity = x if self.downsample is None else _conv_bn(
+            *self.downsample, x, relu=False)
+        return _conv_bn(self.conv3, self.bn3, out, residual=identity)
 
 
 class ResNetTrunk(nn.Module):
@@ -110,7 +186,7 @@ class ResNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dev = x.device
         with profiling.span("resnet.stage", device=dev, stage="stem"):
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = _conv_bn(self.conv1, self.bn1, x)
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         for li in range(1, 5):
             with profiling.span("resnet.stage", device=dev,
@@ -135,7 +211,7 @@ class DeeplabRes101Encoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dev = x.device
         with profiling.span("resnet.encode", device=dev, images=x.shape[0],
-                            convs=self.convs) as enc:
+                            convs=self.convs, bn_folds=0) as enc:
             dt = self.compute_dtype or self.localconv.weight.dtype
             y = self.backbone(x.to(dt))
             with profiling.span("resnet.stage", device=dev,

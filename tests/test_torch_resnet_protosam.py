@@ -15,10 +15,11 @@ moves the output.  The tests marked ``cuda`` hold the whole encoder at
 Tolerances, each with its reason:
 
 * ``F32_TOL`` 1e-5 relative L2: the port and the reference compute the
-  same float32 convolutions and BatchNorms (the port folds each into a
-  scale and a shift, the reference divides), ~1e-7 a layer; 1e-5 leaves a
-  hundredfold, and bf16 rounding (~1e-2), a BatchNorm eps of 1e-3 or a
-  misplaced ReLU lie far beyond it.
+  same float32 convolutions and BatchNorms (the port folds each into the
+  convolution's weights and bias, or, under autograd, into a scale and a
+  shift; the reference divides), ~1e-7 a layer; 1e-5 leaves a hundredfold,
+  and bf16 rounding (~1e-2), a BatchNorm eps of 1e-3 or a misplaced ReLU
+  lie far beyond it.
 * ``SCORE_TOL`` 1e-5 relative L2 of the coarse scores: ALP is float32 in
   both on features that agree to ~1e-7, and its softmax-weighted cosine
   sums move the scores by no more than the features.
@@ -35,6 +36,7 @@ import pathlib
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import plain_resnet as plain
 from protosam_tpu_torch.entry import set_f32_precision
@@ -104,6 +106,22 @@ def port_stages(enc, x) -> dict:
     return got
 
 
+class OpRecorder(TorchDispatchMode):
+    """The aten ops dispatched inside the block, and each convolution's
+    (output, weight) shapes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.convs = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops.append(func.overloadpacket.__name__)
+        if func.overloadpacket is torch.ops.aten.convolution:
+            self.convs.append((tuple(out.shape), tuple(args[1].shape)))
+        return out
+
+
 @pytest.fixture(scope="module")
 def published():
     """The published trunk on seeded weights, its inputs and the plain
@@ -126,20 +144,17 @@ def test_layout_is_the_ports():
 @pytest.mark.parametrize("size", [64, 97, 672])
 def test_roofline_counts_the_convolutions_run(size):
     """``tools/roofline.resnet_flops`` equals 2 FLOP a multiply-add of
-    every convolution the port runs, counted from their output shapes
-    (on the meta device); 618.07 GFLOP an image at 672 px."""
+    every convolution the port runs, counted from the shapes of the
+    convolutions it dispatches (on the meta device); 618.07 GFLOP an image
+    at 672 px."""
     from protosam_tpu_torch.tools import roofline
 
     with torch.device("meta"):
         enc = resnet.DeeplabRes101Encoder()
         x = torch.empty(1, 3, size, size)
-    run = []
-    for m in enc.modules():
-        if isinstance(m, torch.nn.Conv2d):
-            m.register_forward_hook(lambda m, a, y: run.append(
-                2 * y.numel() * m.in_channels * math.prod(m.kernel_size)))
-    with torch.no_grad():
+    with torch.no_grad(), OpRecorder() as rec:
         enc(x)
+    run = [2 * math.prod(y) * math.prod(w[1:]) for y, w in rec.convs]
     got = roofline.dino_flops("dlfcn_res101", size)
     assert len(run) == 105
     assert sum(got.values()) == sum(run)
@@ -217,6 +232,158 @@ def test_planted_faults_fail(published, fault):
     with torch.no_grad():
         gap = rel_l2(enc(x), want["localconv"])
     assert gap > 100 * F32_TOL, gap
+
+
+# ------------------------------------------------ BatchNorm folded once
+
+TEST_SIZE = ((1, 1, 2, 2), (8, 16, 32, 64))  # ``dlfcn_res_t``
+
+
+def n_bns(enc) -> int:
+    return sum(isinstance(m, resnet.FrozenBatchNorm) for m in enc.modules())
+
+
+def traced_call(enc, x, monkeypatch, grad=False):
+    """``enc(x)`` (under ``no_grad`` unless ``grad``) and its
+    ``resnet.encode`` span."""
+    from protosam_tpu_torch.utils import profiling
+
+    rec = profiling.Recorder(capacity=64)
+    monkeypatch.setattr(profiling, "span", rec.span)
+    monkeypatch.setattr(profiling, "count", rec.count)
+    with torch.set_grad_enabled(grad):
+        y = enc(x)
+    return y, next(s for s in rec.spans() if s.name == "resnet.encode")
+
+
+@pytest.fixture
+def test_size():
+    """The test-size trunk on seeded weights, a second seed's weights and
+    an input."""
+    layout = plain.layout(*TEST_SIZE)
+    enc = resnet.DeeplabRes101Encoder(*TEST_SIZE).eval()
+    sd = seeded_weights(layout, 21)
+    enc.load_state_dict(sd)
+    return enc, sd, seeded_weights(layout, 22), images(2, 48, seed=23)
+
+
+@pytest.mark.parametrize("size", ["published", "test_size"])
+def test_folded_forward_matches_unfolded_and_reference(published, size,
+                                                       monkeypatch):
+    """Without grad the pairs run folded; with grad on the parameters,
+    convolution and BatchNorm apart.  Both hold the reference."""
+    if size == "published":
+        enc, _, x, stages = published
+        want, layers = stages["localconv"], plain.LAYERS
+    else:
+        layers, widths = TEST_SIZE
+        enc = resnet.DeeplabRes101Encoder(layers, widths).eval()
+        sd = seeded_weights(plain.layout(layers, widths), 9)
+        enc.load_state_dict(sd)
+        x = images(2, 48, seed=10)
+        want = plain.forward(sd, x, layers, widths)
+    folded, span = traced_call(enc, x, monkeypatch)
+    unfolded, grad_span = traced_call(enc, x, monkeypatch, grad=True)
+    assert unfolded.requires_grad and grad_span.attrs["bn_folds"] == 0
+    assert span.attrs["bn_folds"] in (0, n_bns(enc))
+    assert rel_l2(folded, want) <= F32_TOL
+    assert rel_l2(unfolded.detach(), want) <= F32_TOL
+    assert rel_l2(folded, unfolded.detach()) <= F32_TOL
+    # every convolution but the localconv carries a BatchNorm
+    assert n_bns(enc) == enc.convs - 1
+
+
+def test_a_warm_call_builds_no_fold(test_size, monkeypatch):
+    enc, _, _, x = test_size
+    first, span = traced_call(enc, x, monkeypatch)
+    assert span.attrs["bn_folds"] == n_bns(enc) == 23
+    again, span = traced_call(enc, x, monkeypatch)
+    assert span.attrs["bn_folds"] == 0
+    assert torch.equal(first, again)
+
+
+def _load(enc, other):
+    enc.load_state_dict(other)
+    return other, n_bns(enc)
+
+
+def _in_place(enc, other):
+    with torch.no_grad():
+        enc.backbone.layer3[1].bn2.running_var.mul_(4.0)
+        enc.backbone.layer3[1].conv2.weight.neg_()
+    return {k: v.detach().clone() for k, v in enc.state_dict().items()}, 1
+
+
+def _eps(enc, other):
+    for m in enc.modules():
+        if isinstance(m, resnet.FrozenBatchNorm):
+            m.eps = 0.5
+    return None, n_bns(enc)
+
+
+def _dtype(enc, other):
+    cast_compute(enc, torch.bfloat16)
+    return None, n_bns(enc)
+
+
+@pytest.mark.parametrize("change", [_load, _in_place, _eps, _dtype],
+                         ids=["load_state_dict", "in_place", "eps", "dtype"])
+def test_the_fold_is_rebuilt_when_the_weights_change(test_size, change,
+                                                     monkeypatch):
+    """After a load, an in-place write under ``no_grad``, a new ``eps``
+    or a cast, the next call folds the changed pairs again, and its
+    output is that of the changed weights (the unfolded path's)."""
+    enc, sd, other, x = test_size
+    before, _ = traced_call(enc, x, monkeypatch)
+    now_sd, rebuilt = change(enc, other)
+    got, span = traced_call(enc, x, monkeypatch)
+    assert span.attrs["bn_folds"] == rebuilt
+    assert traced_call(enc, x, monkeypatch)[1].attrs["bn_folds"] == 0
+    unfolded, _ = traced_call(enc, x, monkeypatch, grad=True)
+    if change is _dtype:
+        assert got.dtype == torch.bfloat16
+        assert F32_TOL * 100 < rel_l2(got, unfolded.detach()) \
+            < CARD_TOL["bf16"]
+        return
+    assert rel_l2(got, before) > 100 * F32_TOL
+    assert rel_l2(got, unfolded.detach()) <= F32_TOL
+    if now_sd is not None:
+        want = plain.forward(now_sd, x, *TEST_SIZE)
+        assert rel_l2(got, want) <= F32_TOL
+
+
+def test_a_grad_call_on_the_master_weights_build_moves_every_bn_vector(
+        test_size, monkeypatch):
+    """The training build (bf16 compute over f32 master weights) under
+    grad takes the unfolded path: it folds nothing and the loss reaches
+    all four vectors of every BatchNorm."""
+    enc, _, _, x = test_size
+    cast_compute(enc, torch.bfloat16, master_weights=True)
+    y, span = traced_call(enc, x, monkeypatch, grad=True)
+    assert span.attrs["bn_folds"] == 0 and y.dtype == torch.bfloat16
+    y.float().square().mean().backward()
+    for m in enc.modules():
+        if isinstance(m, resnet.FrozenBatchNorm):
+            for p in (m.weight, m.bias, m.running_mean, m.running_var):
+                assert p.grad is not None and p.grad.dtype == torch.float32
+                assert p.grad.abs().sum() > 0
+    # the same build without grad folds from the f32 masters
+    folded, span = traced_call(enc, x, monkeypatch)
+    assert span.attrs["bn_folds"] == n_bns(enc)
+    assert rel_l2(folded, y.detach()) < CARD_TOL["bf16"]
+
+
+def test_a_warm_forward_dispatches_no_batchnorm_arithmetic(test_size):
+    """Warm, the encoder dispatches its convolutions, the residual adds,
+    the ReLUs and the max-pool, and nothing of BatchNorm: no square root,
+    division or multiply."""
+    enc, _, _, x = test_size
+    with torch.no_grad():
+        enc(x)
+        with OpRecorder() as rec:
+            enc(x)
+    assert "convolution" in rec.ops and len(rec.convs) == enc.convs
+    assert not {"sqrt", "div", "mul", "rsqrt"} & set(rec.ops), rec.ops
 
 
 # ------------------------------------------------- through build_models
@@ -342,3 +509,46 @@ def test_published_encoder_at_672_matches_reference(cuda, dtype):
     assert gap <= CARD_TOL[dtype], gap
     if dtype == "bf16":
         assert gap > F32_TOL * 10, gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_published_encoder_on_the_card_runs_each_pair_as_one_call(
+        cuda, dtype, monkeypatch):
+    """Warm, at 672 px: each convolution–BatchNorm pair followed by a ReLU
+    is one of cuDNN's fused entries (bias, residual and ReLU in its
+    epilogue), the downsamples and the localconv one convolution each, at
+    most two host-side ops a convolution, nothing of BatchNorm's
+    arithmetic and no fold built; the output holds the float32
+    reference."""
+    from collections import Counter
+
+    sd = seeded_weights(plain.layout(), 13, cuda)
+    with torch.device("meta"):
+        enc = resnet.DeeplabRes101Encoder()
+    enc.to_empty(device=cuda)
+    enc.load_state_dict(sd)
+    enc.eval()
+    x = images(2, 672, 17, cuda)
+    want = plain.forward(sd, x)
+    if dtype == "bf16":
+        cast_compute(enc, torch.bfloat16)
+    assert traced_call(enc, x, monkeypatch)[1].attrs["bn_folds"] == 104
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got, span = traced_call(enc, x, monkeypatch)
+    torch.cuda.synchronize()
+    top = Counter(e.name for e in prof.events() if e.name.startswith("aten::")
+                  and not (e.cpu_parent is not None
+                           and e.cpu_parent.name.startswith("aten::")))
+    gap = rel_l2(got, want)
+    print(f"ResNet-101 encoder at 672 {dtype}, fused: rel L2 {gap:.3e}; "
+          f"host ops {dict(top)}")
+    assert span.attrs["bn_folds"] == 0
+    assert top["aten::cudnn_convolution_relu"] == 1 + 2 * 33
+    assert top["aten::cudnn_convolution_add_relu"] == 33
+    assert top["aten::conv2d"] == 4 + 1
+    assert sum(top.values()) <= 2 * enc.convs
+    assert not {"aten::sqrt", "aten::div", "aten::mul"} & set(top)
+    assert gap <= CARD_TOL[dtype], gap

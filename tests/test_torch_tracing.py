@@ -127,25 +127,33 @@ def test_ring_keeps_the_newest_and_counts_what_it_dropped():
 
 def test_resnet_forward_leaves_its_encode_and_stage_spans(monkeypatch):
     """One ``resnet.encode`` span a forward (its images, the 105
-    convolutions of the published trunk, the output grid's side) over six
+    convolutions of the published trunk, the output grid's side, the 104
+    BatchNorms folded on the first call and none on the next) over six
     ``resnet.stage`` spans, stem to localconv."""
     from protosam_tpu_torch.models.backbones.resnet import \
         DeeplabRes101Encoder
 
     rec = profiling.Recorder(capacity=64)
     monkeypatch.setattr(profiling, "span", rec.span)
+    monkeypatch.setattr(profiling, "count", rec.count)
     enc = DeeplabRes101Encoder().eval()
     with torch.no_grad():
         enc(torch.zeros(3, 3, 32, 32))
     got = rec.spans()
     assert [s.name for s in got] == ["resnet.encode"] + ["resnet.stage"] * 6
     encode, stages = got[0], got[1:]
-    assert encode.attrs == {"images": 3, "convs": 105, "feature_hw": 4}
+    assert encode.attrs == {"images": 3, "convs": 105, "feature_hw": 4,
+                            "bn_folds": 104}
     assert [s.attrs["stage"] for s in stages] == [
         "stem", "layer1", "layer2", "layer3", "layer4", "localconv"]
     assert all(s.parent == encode.id for s in stages)
     assert profiling.summary(got)["resnet.encode"]["counts"] == {
-        "images": 3, "convs": 105, "feature_hw": 4}
+        "images": 3, "convs": 105, "feature_hw": 4, "bn_folds": 104}
+    rec.clear()
+    with torch.no_grad():
+        enc(torch.zeros(3, 3, 32, 32))
+    assert rec.spans()[0].attrs == {"images": 3, "convs": 105,
+                                    "feature_hw": 4, "bn_folds": 0}
 
 
 def test_tracing_off_opens_no_range_and_makes_no_cuda_event(monkeypatch):
